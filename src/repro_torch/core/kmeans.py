@@ -1,0 +1,83 @@
+"""k-means for partition construction, and nearest-centroid assignment.
+
+Lloyd iterations run on the index's device as a plain loop: one
+``torch.matmul`` distance matrix per step (the JAX package leaves the same
+GEMM to XLA) and ``index_add_`` for the cluster sums.  Empty clusters are
+reseeded to the points currently farthest from their centroid, keeping
+all k clusters alive.  Seeding stays numpy with the same generator calls
+as the JAX package, so both draw the same initial centroids.
+
+Split and refinement (maintenance) come with the maintenance port.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+from ..kernels.ref import pairwise_l2_sq
+
+Tensor = torch.Tensor
+
+
+def _lloyd(xs: Tensor, init_c: Tensor, k: int, iters: int
+           ) -> Tuple[Tensor, Tensor]:
+    """Lloyd iterations.  xs (N, d) points, init_c (k, d).  Returns
+    (centroids, assign (N,) int32); ties go to the smaller centroid."""
+    ones = torch.ones(xs.shape[0], dtype=xs.dtype, device=xs.device)
+    c = init_c
+    for _ in range(iters):
+        d = pairwise_l2_sq(xs, c)                              # (N, k)
+        assign = torch.argmin(d, dim=1)
+        mind = torch.gather(d, 1, assign[:, None])[:, 0]
+        sums = torch.zeros_like(c).index_add_(0, assign, xs)
+        cnts = torch.zeros(k, dtype=xs.dtype,
+                           device=xs.device).index_add_(0, assign, ones)
+        new_c = torch.where(cnts[:, None] > 0,
+                            sums / torch.clamp(cnts[:, None], min=1.0), c)
+        # reseed empties to the currently worst-fit points
+        worst = torch.argsort(-mind, stable=True)[:k]
+        c = torch.where((cnts == 0)[:, None], xs[worst], new_c)
+    assign = torch.argmin(pairwise_l2_sq(xs, c), dim=1).to(torch.int32)
+    return c, assign
+
+
+def kmeans(x: np.ndarray, k: int, iters: int = 10, seed: int = 0,
+           device="cpu") -> Tuple[np.ndarray, np.ndarray]:
+    """x (n, d) numpy -> (centroids (k, d), assignments (n,)) as numpy,
+    with the Lloyd steps on ``device``."""
+    n, d = x.shape
+    k = min(k, n)
+    rng = np.random.default_rng(seed)
+    init_c = x[rng.choice(n, size=k, replace=False)].astype(np.float32)
+    xs = torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32),
+                         device=device)
+    c, assign = _lloyd(xs, torch.as_tensor(init_c, device=device), k, iters)
+    return c.cpu().numpy(), assign.cpu().numpy()
+
+
+_ASSIGN_HOST_MAX = 1 << 22   # n*p at or below this: host GEMM off the card
+
+
+def assign(x: np.ndarray, centroids: np.ndarray, impl: str = "auto",
+           device="cpu") -> np.ndarray:
+    """Nearest-centroid assignment of host points.
+
+    On a CUDA ``device`` it always runs the assignment kernel.  Elsewhere
+    small problems (maintenance-sized, n*p <= 2^22) take a host GEMM, as
+    in the JAX package off the TPU, and larger ones the kernel path's
+    plain version."""
+    dev = torch.device(device)
+    if (impl == "auto" and dev.type != "cuda"
+            and x.shape[0] * centroids.shape[0] <= _ASSIGN_HOST_MAX):
+        xs = np.asarray(x, dtype=np.float32)
+        c = np.asarray(centroids, dtype=np.float32)
+        d = np.sum(c * c, axis=1)[None, :] - 2.0 * (xs @ c.T)
+        return np.argmin(d, axis=1).astype(np.int32)
+    a, _ = ops.kmeans_assign(
+        torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev),
+        torch.as_tensor(np.asarray(centroids, dtype=np.float32), device=dev),
+        impl=impl)
+    return a.cpu().numpy()

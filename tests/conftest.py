@@ -15,6 +15,10 @@ def pytest_configure(config):
         "markers",
         "sanitized: runs device paths under jax.transfer_guard('disallow') "
         "+ debug_nans + the compile-event counter")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA kernels); "
+        "skipped where torch.cuda.is_available() is false")
 
 
 @pytest.fixture

@@ -1,0 +1,241 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs an NVIDIA GPU and skips without one.  The file
+imports neither JAX nor the JAX package, so it also runs on a machine
+that has only PyTorch: from the repository root,
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+
+(``--noconftest``: the shared conftest imports the JAX package).
+
+Shapes probe the kernels' edges: widths that are not multiples of a warp,
+batches that are not multiples of a query tile, k_pad from 1 to the
+kernel's limit, unions processed in several chunks, invalid rows and
+whole empty partitions, duplicated union slots under all-False masks,
+and exact ties.  Tolerance: distances agree to rtol 1e-4 / atol 1e-3 (the
+kernel and the plain version sum the dot products in different orders);
+top-k ids agree as sets to 0.999 (near-ties may swap).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import multiquery as mq
+from repro_torch.core.convert import index_from_arrays, index_to_arrays
+from repro_torch.core.index import QuakeIndex
+from repro_torch.data import datasets
+from repro_torch.kernels import kmeans_assign as ka
+from repro_torch.kernels import ops
+from repro_torch.kernels import scan_topk as st
+from repro_torch.kernels import scan_topk_indexed as sti
+
+pytestmark = pytest.mark.cuda
+
+RTOL, ATOL = 1e-4, 1e-3
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
+    return torch.device("cuda")
+
+
+def _recall(a, b) -> float:
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    hits = [len(set(x[x >= 0].tolist()) & set(y[y >= 0].tolist()))
+            / max((y >= 0).sum(), 1) for x, y in zip(a, b)]
+    return float(np.mean(hits))
+
+
+def _same_topk(dk, ik, dp, ip_):
+    torch.cuda.synchronize()
+    dk, dp = dk.double().cpu().numpy(), dp.double().cpu().numpy()
+    fin = dp < 1e37
+    np.testing.assert_array_equal(dk < 1e37, fin)
+    np.testing.assert_allclose(dk[fin], dp[fin], rtol=RTOL, atol=ATOL)
+    assert (ik.cpu().numpy()[~fin] == -1).all()
+    assert _recall(ik, ip_) >= 0.999
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("p,s,d,b,u,k_pad", [
+    (40, 96, 32, 37, 17, 64),     # typical, B not a tile multiple
+    (9, 40, 7, 1, 9, 1),          # d < a warp, one query, k_pad 1
+    (20, 300, 130, 13, 11, 1024),  # wide rows, the largest k_pad
+    (64, 64, 16, 64, 64, 128),    # union = all partitions
+])
+def test_scan_topk_indexed_matches_plain(dev, dtype, metric, p, s, d, b, u,
+                                         k_pad):
+    rng = np.random.default_rng(p + s + d)
+    data = torch.as_tensor(rng.normal(size=(p, s, d)).astype(np.float32),
+                           device=dev).to(dtype)
+    valid = torch.as_tensor(rng.random((p, s)) < 0.8, device=dev)
+    valid[1] = False                           # an empty partition
+    valid[2, s // 2:] = False                  # a short one
+    sel = torch.as_tensor(rng.choice(p, u, replace=False).astype(np.int32),
+                          device=dev)
+    qmask = torch.as_tensor(rng.random((b, u)) < 0.5, device=dev)
+    q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32),
+                        device=dev).to(dtype)
+    before = sti.LAUNCHES.count
+    dk, ik = sti.scan_topk_indexed(q, data, valid, sel, qmask, k_pad=k_pad,
+                                   metric=metric)
+    assert sti.LAUNCHES.count == before + 1
+    dp, ip_ = sti.scan_topk_indexed_plain(q, data, valid, sel, qmask,
+                                          k_pad=k_pad, metric=metric)
+    _same_topk(dk, ik, dp, ip_)
+
+
+def test_scan_topk_indexed_chunked_union_and_inert_tail(dev, monkeypatch):
+    """A union in many chunks gives the result of one; duplicated slots
+    under all-False masks (the packer's inert tail) change nothing."""
+    rng = np.random.default_rng(3)
+    data = torch.as_tensor(rng.normal(size=(30, 50, 24)).astype(np.float32),
+                           device=dev)
+    valid = torch.ones(30, 50, dtype=torch.bool, device=dev)
+    sel = torch.as_tensor(np.r_[rng.choice(30, 20, replace=False),
+                                [0, 0, 0, 0]].astype(np.int32), device=dev)
+    sel[20:] = sel[0]
+    qmask = torch.as_tensor(rng.random((21, 24)) < 0.4, device=dev)
+    qmask[:, 20:] = False
+    q = torch.as_tensor(rng.normal(size=(21, 24)).astype(np.float32),
+                        device=dev)
+    whole = sti.scan_topk_indexed(q, data, valid, sel, qmask, k_pad=32)
+    monkeypatch.setattr(sti, "SCRATCH_BYTES", 21 * 32 * 8 * 3)  # 3 slots
+    chunked = sti.scan_topk_indexed(q, data, valid, sel, qmask, k_pad=32)
+    torch.cuda.synchronize()
+    assert torch.equal(whole[0], chunked[0])
+    assert torch.equal(whole[1], chunked[1])
+    _same_topk(*chunked, *sti.scan_topk_indexed_plain(
+        q, data, valid, sel, qmask, k_pad=32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_n,n,d,k_pad,masked", [
+    (50, 700, 24, 32, False), (1024, 1000, 128, 64, False),
+    (3, 33, 5, 64, True)])
+def test_scan_topk_matches_plain(dev, dtype, q_n, n, d, k_pad, masked,
+                                 monkeypatch):
+    rng = np.random.default_rng(n + d)
+    q = torch.as_tensor(rng.normal(size=(q_n, d)).astype(np.float32),
+                        device=dev).to(dtype)
+    xs = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32),
+                         device=dev).to(dtype)
+    valid = torch.as_tensor(rng.random(n) < 0.7, device=dev) \
+        if masked else None
+    dp, ip_ = st.scan_topk_plain(q, xs, valid, k_pad=k_pad)
+    _same_topk(*st.scan_topk(q, xs, valid, k_pad=k_pad), dp, ip_)
+    monkeypatch.setattr(st, "CHUNK_ROWS", 64)          # many chunks
+    _same_topk(*st.scan_topk(q, xs, valid, k_pad=k_pad), dp, ip_)
+
+
+@pytest.mark.parametrize("n,c,d", [(100, 7, 8), (1000, 333, 64),
+                                   (65, 40, 200)])
+def test_kmeans_assign_matches_plain_with_ties_and_masks(dev, n, c, d):
+    rng = np.random.default_rng(n + c)
+    cs = torch.as_tensor(rng.normal(size=(c, d)).astype(np.float32),
+                         device=dev)
+    cs[1] = cs[c - 1]                          # exact tie, smaller index
+    jitter = rng.normal(size=(5, d)).astype(np.float32) * 0.01
+    xs = torch.cat([cs[c - 1] + torch.as_tensor(jitter, device=dev),
+                    torch.as_tensor(rng.normal(size=(n, d))
+                                    .astype(np.float32), device=dev)])
+    aux = (cs * cs).sum(1)
+    aux[0] += 3.0e38                           # an invalid centroid
+    ak, mk = ka.kmeans_assign(xs, cs, aux)
+    ap, mp = ka.kmeans_assign_plain(xs, cs, aux)
+    torch.cuda.synchronize()
+    assert (ak[:5] == 1).all() and (ak != 0).all()
+    np.testing.assert_allclose(mk.cpu().numpy(), mp.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    assert (ak == ap).float().mean().item() > 0.99
+
+
+def test_wrappers_raise_on_operands_the_kernels_do_not_take(dev):
+    q = torch.zeros(2, 8, device=dev)
+    data = torch.zeros(3, 16, 8, device=dev)
+    valid = torch.ones(3, 16, dtype=torch.bool, device=dev)
+    sel = torch.arange(3, dtype=torch.int32, device=dev)
+    qmask = torch.ones(2, 3, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        sti.scan_topk_indexed(q, data, valid, sel, qmask, k_pad=2048)
+    with pytest.raises(ValueError):
+        sti.scan_topk_indexed(q, data, valid, sel.long(), qmask, k_pad=8)
+    with pytest.raises(ValueError):
+        sti.scan_topk_indexed(q.half(), data.half(), valid, sel, qmask,
+                              k_pad=8)
+    with pytest.raises(ValueError):
+        st.scan_topk(q, data[0].t(), k_pad=8)
+    with pytest.raises(ValueError):
+        ka.kmeans_assign(q, data[0], torch.zeros(16, device=dev).double())
+
+
+def test_ops_on_the_card_match_the_cpu(dev):
+    rng = np.random.default_rng(9)
+    qs = rng.normal(size=(30, 16)).astype(np.float32)
+    xs = rng.normal(size=(500, 16)).astype(np.float32)
+    dc, ic = ops.scan_topk(torch.as_tensor(qs), torch.as_tensor(xs), 20)
+    dg, ig = ops.scan_topk(torch.as_tensor(qs, device=dev),
+                           torch.as_tensor(xs, device=dev), 20)
+    _same_topk(dg, ig, dc.to(dev), ic.to(dev))
+    ac, mc = ops.kmeans_assign(torch.as_tensor(xs), torch.as_tensor(qs))
+    ag, mg = ops.kmeans_assign(torch.as_tensor(xs, device=dev),
+                               torch.as_tensor(qs, device=dev))
+    assert (ag.cpu() == ac).float().mean().item() > 0.99
+    np.testing.assert_allclose(mg.cpu().numpy(), mc.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_per_query_search_on_the_card_launches_the_scan_kernel(dev):
+    """``QuakeIndex.search`` on a CUDA index scans through the kernel by
+    default: one ``scan_topk`` launch per partition it scans."""
+    ds = datasets.clustered(3000, 16, n_clusters=16, seed=0)
+    cpu = QuakeIndex.build(ds.vectors, num_partitions=30, kmeans_iters=4,
+                           device="cpu")
+    gpu = index_from_arrays(index_to_arrays(cpu), device=dev)
+    assert gpu.config.scan_impl == "auto"
+    for qi in datasets.queries_near(ds, 4, seed=9):
+        before = st.LAUNCHES.count
+        rg = gpu.search(qi, 10, nprobe=4, record_stats=False)
+        assert st.LAUNCHES.count - before == sum(rg.nprobe.values())
+        rc = cpu.search(qi, 10, nprobe=4, record_stats=False)
+        assert rg.nprobe == rc.nprobe
+        assert len(set(rg.ids.tolist()) & set(rc.ids.tolist())) >= 9
+
+
+def test_main_path_on_the_card_matches_cpu(dev):
+    ds = datasets.clustered(4000, 16, n_clusters=16, seed=0)
+    q = datasets.queries_near(ds, 48, seed=3)
+    cpu = QuakeIndex.build(ds.vectors, num_partitions=32, kmeans_iters=4,
+                           device="cpu")
+    state = index_to_arrays(cpu)
+    gpu = index_from_arrays(state, device=dev)
+    for kw in (dict(nprobe=6), dict(), dict(rounds=1),
+               dict(storage_dtype="bf16")):
+        # the CPU kernel path (plain versions) computes what the kernels
+        # do; bf16 queries ride in bf16 there, not in the torch oracle
+        rc = cpu.search_batch(q, 10, impl="cuda", **kw)
+        rg = gpu.search_batch(q, 10, **kw)
+        assert np.mean(rc.ids == rg.ids) >= 0.99
+        np.testing.assert_array_equal(rc.nprobe, rg.nprobe)
+    before = st.LAUNCHES.count
+    rf = mq.BatchedSearchExecutor(gpu, planner="fused").search(q, 10)
+    assert st.LAUNCHES.count > before
+    assert np.mean(rf.ids == cpu.search_batch(q, 10).ids) >= 0.95
+    before = ka.LAUNCHES.count
+    big = int(np.argmax(cpu.levels[0].sizes()))
+    new = cpu.levels[0].vectors[big][:40] + 0.01   # one partition's topic
+    gpu.insert(new, np.arange(9000, 9040))
+    cpu.insert(new, np.arange(9000, 9040))
+    assert ka.LAUNCHES.count == before + 1          # routing on the card
+    gpu.check_invariants()
+    assert gpu.id_map == cpu.id_map
+    ex = mq.get_executor(gpu)
+    rg = gpu.search_batch(q, 10)
+    assert ex.delta_refreshes == 1
+    assert np.mean(rg.ids == cpu.search_batch(q, 10).ids) >= 0.99
+    built = QuakeIndex.build(ds.vectors, num_partitions=32, kmeans_iters=4,
+                             device=dev)
+    built.check_invariants()
