@@ -1,20 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--n 1000000] [--batch 1024] [--seed 0]
+                          [--wiki-n 1000000] [--months 12]
 
-With no arguments it runs the SIFT1M-shaped cell: 1,000,000 clustered
-synthetic vectors of d=128 (L2; a mixture of 8192 Gaussian clusters with
-sizes proportional to i^-0.5, about eight clusters per partition),
-``QuakeIndex.build`` with P = sqrt(n) = 1000 partitions, ``search_batch``
-of B=1024 queries at k=100 and recall target 0.9 (the vectorized
-planner, the fused planner, ``nprobe=32, rounds=1`` and bf16 storage), an
-insert burst of 10,000 vectors and 5,000 deletes, and a search again.  It
-then holds each CUDA kernel against its plain PyTorch version at the
-shapes the main path gave it, times both and a one-library-call
-yardstick, profiles one warm ``search_batch``, and prints one JSON line
-of kernels, the card's name and power limit, and a last JSON line with
-the device.
+With no arguments it runs three paths, each with the kernels' launch
+counts set to 0 just before it and read just after:
+
+1. The main path, the SIFT1M-shaped cell: 1,000,000 clustered synthetic
+   vectors of d=128 (L2; a mixture of 8192 Gaussian clusters with sizes
+   proportional to i^-0.5, about eight clusters per partition),
+   ``QuakeIndex.build`` with P = sqrt(n) = 1000 partitions,
+   ``search_batch`` of B=1024 queries at k=100 and recall target 0.9 (the
+   vectorized planner, the fused planner, ``nprobe=32, rounds=1`` and
+   bf16 storage), an insert burst of 10,000 vectors and 5,000 deletes,
+   and a search again.
+2. int8 serving on the same index: APS rounds and ``nprobe=32,
+   rounds=1`` through the int8 executor (IVF-residual codes, the q8 scan
+   kernel, exact re-rank of the top-2k), then a second insert/delete
+   burst that the int8 executor must serve by a full rebuild.
+3. The dynamic loop (paper Fig. 4): the Wikipedia-style workload at
+   ``--wiki-n`` vectors of d=128 (inner product; its generator's 12
+   months), a latency model profiled on the card (device time per query
+   of a B-query scan, with the paper's tau rescaled to it), and per
+   month the insert burst, per-query APS searches that record access
+   statistics, ``Maintainer.run()``, the index invariants, and one
+   batched search through the f32 and the int8 executors, held against
+   the exact ground truth.  Each month also reports the pass that the
+   single-query latency model would make on the same statistics, rolled
+   back after it.
+
+It then holds each CUDA kernel against its plain PyTorch version at the
+shapes the paths gave it, times both and a one-library-call yardstick,
+profiles one warm ``search_batch``, and prints one JSON line of kernels,
+the card's name and power limit, and a last JSON line with the device.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
 port is not beside it, and on any failed check.  Detailed records go to
@@ -41,6 +60,8 @@ F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 TOL_REL, TOL_ABS = 1e-5, 1e-2
 BF16_RECALL = 0.8             # bf16 vs f32 id overlap (the JAX tests' bar)
 APS_RECALL_MIN = 0.85         # recall@100 of the APS path at target 0.9
+INT8_OVERLAP = 0.85           # int8 vs f32 id overlap (the JAX tests' bar)
+INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 (the bound of the q8 scan)
 
 
 def fail(msg: str) -> None:
@@ -59,6 +80,10 @@ def parse_args():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--clusters", type=int, default=8192)
     ap.add_argument("--power", type=float, default=0.5)
+    ap.add_argument("--wiki-n", type=int, default=1_000_000)
+    ap.add_argument("--months", type=int, default=12)
+    ap.add_argument("--month-queries", type=int, default=512,
+                    help="per-query searches per month (access statistics)")
     return ap.parse_args()
 
 
@@ -184,6 +209,42 @@ def profile_search(fn) -> dict:
     return out
 
 
+def burst(idx, rng, n_insert, n_delete, first_id, dim):
+    """An insert burst near the members of 20 partitions (new content on
+    a few topics) and deletes of older vectors there."""
+    import numpy as np
+    lvl0 = idx.levels[0]
+    hot = rng.choice(np.nonzero(lvl0.sizes() >= 64)[0], size=20,
+                     replace=False)
+    pool = np.concatenate([lvl0.vectors[j] for j in hot])
+    new_x = (pool[rng.integers(0, len(pool), n_insert)]
+             + rng.normal(size=(n_insert, dim)).astype(np.float32)
+             * 0.1).astype(np.float32)
+    new_ids = np.arange(first_id, first_id + n_insert, dtype=np.int64)
+    old_ids = np.concatenate([lvl0.ids[j] for j in hot])
+    del_ids = rng.choice(old_ids, size=min(n_delete, len(old_ids)),
+                         replace=False)
+    return new_x, new_ids, del_ids
+
+
+def overlap(a, b) -> float:
+    """Mean share of b's ids (per row, -1 left out) that a also has."""
+    import numpy as np
+    return float(np.mean([len(set(x[x >= 0].tolist())
+                              & set(y[y >= 0].tolist()))
+                          / max(int((y >= 0).sum()), 1)
+                          for x, y in zip(a, b)]))
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def main() -> int:
     args = parse_args()
     import torch
@@ -197,7 +258,7 @@ def main() -> int:
         from repro_torch.core import (BatchedSearchExecutor, QuakeIndex,
                                       get_executor, plan_batch)
         from repro_torch.data import datasets
-        from repro_torch.kernels import build, ops
+        from repro_torch.kernels import build, ops, ref
         from repro_torch.kernels import kmeans_assign as ka
         from repro_torch.kernels import scan_topk as st
         from repro_torch.kernels import scan_topk_indexed as sti
@@ -213,6 +274,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # ---- build the kernels ------------------------------------------------
     t0 = time.perf_counter()
@@ -228,10 +290,24 @@ def main() -> int:
                 print(f"  ptxas {n}: {line.strip()}")
     record["build_s"] = build_s
 
-    # ---- main path ------------------------------------------------------
     steps, step_launches = {}, {}
     counters = {"scan_topk_indexed": sti.LAUNCHES, "scan_topk": st.LAUNCHES,
-                "kmeans_assign": ka.LAUNCHES}
+                "kmeans_assign": ka.LAUNCHES,
+                "scan_topk_indexed_q8": sti.LAUNCHES_Q8}
+    path_launches = {}
+
+    def start_path():
+        for c in counters.values():
+            c.reset()
+
+    def end_path(name, needs):
+        got = {n: c.count for n, c in counters.items()}
+        path_launches[name] = got
+        print(f"launches on the {name} path: {got}")
+        for n in needs:
+            if got[n] <= 0:
+                fail(f"kernel {n} was not launched on the {name} path")
+        return got
 
     def step(name, fn):
         before = {n: c.count for n, c in counters.items()}
@@ -246,14 +322,14 @@ def main() -> int:
               f"{step_launches[name]}")
         return out
 
+    # ---- path 1: the main path ------------------------------------------
     ds = step("data", lambda: datasets.clustered(
         args.n, args.dim, n_clusters=args.clusters, power=args.power,
         seed=args.seed))
     q = datasets.queries_near(ds, args.batch, seed=args.seed + 1)
     gt = step("ground_truth", lambda: ds.ground_truth(q, args.k,
                                                       device=dev))
-    for c in counters.values():
-        c.reset()
+    start_path()
     idx = step("build", lambda: QuakeIndex.build(ds.vectors, device=dev))
     runs = {}
 
@@ -294,76 +370,107 @@ def main() -> int:
            lambda: idx.search_batch(q, args.k, recall_target=0.9,
                                     storage_dtype="bf16"), BF16_RECALL)
 
-    # insert burst: new vectors near the members of a few partitions (new
-    # content on a few topics), and deletes of older vectors there
-    rng = np.random.default_rng(args.seed + 2)
-    lvl0 = idx.levels[0]
-    sizes = lvl0.sizes()
-    hot = rng.choice(np.nonzero(sizes >= 64)[0], size=20, replace=False)
-    pool = np.concatenate([lvl0.vectors[j] for j in hot])
-    new_x = (pool[rng.integers(0, len(pool), args.insert)]
-             + rng.normal(size=(args.insert, args.dim)).astype(np.float32)
-             * 0.1).astype(np.float32)
-    new_ids = np.arange(args.n, args.n + args.insert, dtype=np.int64)
-    old_ids = np.concatenate([lvl0.ids[j] for j in hot])
-    del_ids = rng.choice(old_ids, size=min(args.delete, len(old_ids)),
-                         replace=False)
-    step("insert", lambda: idx.insert(new_x, new_ids))
-    removed = step("delete", lambda: idx.delete(del_ids))
-    if removed != len(del_ids):
-        fail(f"deleted {removed} of {len(del_ids)}")
-    keep = np.ones(args.n, dtype=bool)
-    keep[del_ids] = False
-    live_ids = np.concatenate([np.nonzero(keep)[0], new_ids])
-    ds2 = datasets.VectorDataset(
-        np.concatenate([ds.vectors[keep], new_x]),
-        np.zeros(len(live_ids), dtype=np.int64), ds.centers)
-    q2 = np.concatenate([q[: args.batch // 2], new_x[: args.batch
-                                                     - args.batch // 2]])
-    gt = live_ids[ds2.ground_truth(q2, args.k, device=dev)]
+    # the vectors ever inserted, by id (ids are contiguous), and which live
+    all_x = [ds.vectors]
+    alive = np.ones(args.n, dtype=bool)
+
+    def update(rng, first_id):
+        new_x, new_ids, del_ids = burst(idx, rng, args.insert, args.delete,
+                                        first_id, args.dim)
+        step(f"insert@{first_id}", lambda: idx.insert(new_x, new_ids))
+        removed = step(f"delete@{first_id}", lambda: idx.delete(del_ids))
+        if removed != len(del_ids):
+            fail(f"deleted {removed} of {len(del_ids)}")
+        all_x.append(new_x)
+        alive.resize(first_id + len(new_ids), refcheck=False)
+        alive[new_ids] = True
+        alive[del_ids] = False
+        live_ids = np.nonzero(alive)[0]
+        x_live = np.concatenate(all_x)[alive]
+        q_new = np.concatenate([q[: args.batch // 2],
+                                new_x[: args.batch - args.batch // 2]])
+        ds_live = datasets.VectorDataset(
+            x_live, np.zeros(len(live_ids), dtype=np.int64), ds.centers)
+        return q_new, live_ids[ds_live.ground_truth(q_new, args.k,
+                                                    device=dev)]
+
+    q2, gt = update(np.random.default_rng(args.seed + 2), args.n)
     ex = get_executor(idx)
-    search("search_after_update",
-           lambda: idx.search_batch(q2, args.k, recall_target=0.9),
-           APS_RECALL_MIN)
-    launches = {n: c.count for n, c in counters.items()}
-    print(f"launches on the main path: {launches}")
+    r_after = search("search_after_update",
+                     lambda: idx.search_batch(q2, args.k, recall_target=0.9),
+                     APS_RECALL_MIN)
     print(f"f32 executor: delta_refreshes {ex.delta_refreshes}, "
           f"full_rebuilds {ex.full_rebuilds}")
     if ex.delta_refreshes != 1 or ex.full_rebuilds != 1:
         fail("the update should refresh the snapshot by one delta")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
     idx.check_invariants()
-    record.update(steps=steps, step_launches=step_launches, runs=runs,
-                  launches=launches,
-                  snapshot={"P": int(ex._snap.num_partitions),
-                            "S_cap": int(ex._snap.capacity)})
+    launches = end_path("main", ("scan_topk_indexed", "scan_topk",
+                                 "kmeans_assign"))
 
-    # ---- kernels vs their plain versions, at the main path's shapes -----
+    # ---- path 2: int8 serving on the same index -------------------------
+    start_path()
+    ex8 = get_executor(idx, "int8")
+    search("int8_search",
+           lambda: idx.search_batch(q2, args.k, recall_target=0.9,
+                                    storage_dtype="int8"), APS_RECALL_MIN)
+    before = sti.LAUNCHES_Q8.count
+    r8 = search("int8_search_warm",
+                lambda: idx.search_batch(q2, args.k, recall_target=0.9,
+                                         storage_dtype="int8"),
+                APS_RECALL_MIN)
+    q8_per_search = sti.LAUNCHES_Q8.count - before
+    print(f"q8 kernel launches per warm int8 search_batch: {q8_per_search} "
+          f"({r8.rounds} rounds)")
+    ov = overlap(r8.ids, r_after.ids)
+    print(f"  int8 ids overlap the f32 ids: {ov:.4f}")
+    if ov < INT8_OVERLAP:
+        fail(f"int8 overlap with f32 {ov:.4f} < {INT8_OVERLAP}")
+    search("int8_nprobe32",
+           lambda: idx.search_batch(q2, args.k, nprobe=32, rounds=1,
+                                    storage_dtype="int8"))
+    rebuilds = ex8.full_rebuilds
+    q3, gt = update(np.random.default_rng(args.seed + 3),
+                    args.n + args.insert)
+    search("int8_after_update",
+           lambda: idx.search_batch(q3, args.k, recall_target=0.9,
+                                    storage_dtype="int8"), APS_RECALL_MIN)
+    print(f"int8 executor: delta_refreshes {ex8.delta_refreshes}, "
+          f"full_rebuilds {rebuilds} -> {ex8.full_rebuilds}")
+    if ex8.delta_refreshes != 0 or ex8.full_rebuilds != rebuilds + 1:
+        fail("the int8 executor must requantize by one full rebuild")
+    idx.check_invariants()
+    end_path("int8", ("scan_topk_indexed_q8", "kmeans_assign"))
+    record.update(steps=steps, step_launches=step_launches, runs=runs,
+                  q8_per_warm_search=q8_per_search,
+                  snapshot={"P": int(ex._snap.num_partitions),
+                            "S_cap": int(ex._snap.capacity),
+                            "S_cap_int8": int(ex8._snap.capacity)})
+
+    # ---- kernels vs their plain versions, at the paths' shapes ----------
     kernels = []
     snap = ex.snapshot()
     valid = ex._valid
     plan = plan_batch(idx, q, args.k, recall_target=0.9)
     sel = plan.sel_dev.to(torch.int32).contiguous()
+    sel_l = sel.long()
     qmask = plan.qmask_dev.contiguous()
     k_pad = ops._next_pow2(args.k)
     nrows = sti.live_rows(valid)
     pairs = qmask.sum(dim=0).long()
-    live = nrows[sel.long()].long()
+    live = nrows[sel_l].long()
     active_rows = int((pairs * live).sum())
-    uniq = torch.unique(sel.long())
+    uniq = torch.unique(sel_l)
     rows_read = int(nrows[uniq].sum())
     bf16_snap = get_executor(idx, "bf16").snapshot().data
     q_dev = torch.as_tensor(q, device=dev)
     b, d = q.shape
     u = int(sel.shape[0])
 
-    def library_scan(data_t, metric):
+    def library_scan(gather, valid_t, metric, kp):
         """torch.topk over a torch.matmul on the gathered union rows."""
-        blocks = data_t.index_select(0, sel.long()).float()
+        blocks = gather()
         xs_u = blocks.reshape(-1, d)
-        ok = valid.index_select(0, sel.long()).reshape(-1)
+        ok = valid_t.index_select(0, sel_l).reshape(-1)
         aux = torch.where(ok, 0.0, MASK_DIST)
         if metric == "l2":
             aux = aux + (xs_u * xs_u).sum(1)
@@ -373,7 +480,7 @@ def main() -> int:
             dist = aux + coef * torch.matmul(q_dev[b0:b0 + 64], xs_u.T)
             m = qmask[b0:b0 + 64].repeat_interleave(blocks.shape[1], 1)
             dist = torch.where(m, dist, MASK_DIST)
-            out.append(torch.topk(dist, k_pad, dim=1, largest=False))
+            out.append(torch.topk(dist, kp, dim=1, largest=False))
         return out
 
     for dtype_name, data_t in (("f32", snap.data), ("bf16", bf16_snap)):
@@ -402,12 +509,12 @@ def main() -> int:
                 if ov < BF16_RECALL:
                     fail(f"bf16 {metric} overlap with f32 {ov:.3f}")
             ms = cuda_ms(kern)
-            lib_ms = timed(lambda: library_scan(data_t, metric))[1]
-            nbytes = (rows_read * d * elem + b * d * elem
-                      + 2 * b * k_pad * 4 + b * u + rows_read)
-            flops = 2.0 * active_rows * d
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / F32_FLOPS_PER_S * 1e3
+            lib_ms = timed(lambda: library_scan(
+                lambda: data_t.index_select(0, sel_l).float(), valid,
+                metric, k_pad))[1]
+            bound_ms, bound_by = bound(
+                rows_read * d * elem + b * d * elem + 2 * b * k_pad * 4
+                + b * u + rows_read, 2.0 * active_rows * d, F32_FLOPS_PER_S)
             kernels.append({
                 "name": ("scan_topk_indexed" if (dtype_name, metric)
                          == ("f32", "l2") else
@@ -417,14 +524,76 @@ def main() -> int:
                 "replaces": "src/repro/kernels/scan_topk_indexed.py:85",
                 "launches": launches["scan_topk_indexed"],
                 "max_abs_err": err, "tol": tol, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": lib_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms,
                 "shape": {"B": b, "U": u, "S": int(data_t.shape[1]),
                           "d": d, "k_pad": k_pad,
                           "active_pair_rows": active_rows}})
             print(f"scan_topk_indexed {dtype_name} {metric}: err {err:.3g}"
                   f" (tol {tol:.3g}), {ms:.3f} ms vs plain {plain_ms:.1f} ms")
+    del bf16_snap
+
+    # the int8 scan at the same plan, k_scan = 2k (the re-rank's list)
+    snap8 = ex8.snapshot()
+    kp8 = ops._next_pow2(2 * args.k)
+    nrows8 = sti.live_rows(ex8._valid)
+    live8 = nrows8[sel_l].long()
+    active8 = int((pairs * live8).sum())
+    rows8 = int(nrows8[uniq].sum())
+
+    def dequantized():
+        return (snap8.centroids.index_select(0, sel_l)[:, None, :]
+                + snap8.data.index_select(0, sel_l).float()
+                * snap8.scales.index_select(0, sel_l)[..., None])
+
+    for metric in ("l2", "ip"):
+        operands = ref.q8_scan_operands(q_dev, snap8.data, snap8.scales,
+                                        ex8._valid, sel, metric,
+                                        snap8.centroids)
+        args8 = (*operands[:2], snap8.data, snap8.scales, *operands[2:],
+                 ex8._valid, sel, qmask)
+
+        def kern():
+            return sti.scan_topk_indexed_q8_cuda(*args8, k_pad=kp8,
+                                                 metric=metric)
+
+        def plain():
+            return sti.scan_topk_indexed_q8_plain(*args8, k_pad=kp8,
+                                                  metric=metric)
+        dk, ik = kern()
+        (dp, ip_), plain_ms = timed(plain)
+        err, tol = compare_topk(f"scan_topk_indexed_q8 {metric}", dk, ik,
+                                dp, ip_)
+        ms = cuda_ms(kern)
+        lib_ms = timed(lambda: library_scan(dequantized, ex8._valid, metric,
+                                            kp8))[1]
+        bound_ms, bound_by = bound(
+            rows8 * (d + 4 + 4 + 1) + b * (d + 4) + b * u * (4 + 1)
+            + 2 * b * kp8 * 4, 2.0 * active8 * d, INT8_OPS_PER_S)
+        kernels.append({
+            "name": ("scan_topk_indexed_q8" if metric == "l2"
+                     else "scan_topk_indexed_q8[ip]"),
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/scan_topk_indexed_q8.cu",
+            "replaces": "src/repro/kernels/scan_topk_indexed.py:210",
+            "launches": path_launches["int8"]["scan_topk_indexed_q8"],
+            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms,
+            "library": "gather + dequantize, torch.matmul, torch.topk",
+            "shape": {"B": b, "U": u, "S": int(snap8.capacity), "d": d,
+                      "k_pad": kp8, "active_pair_rows": active8,
+                      "rows_read": rows8}})
+        print(f"scan_topk_indexed_q8 {metric}: err {err:.3g} (tol "
+              f"{tol:.3g}), {ms:.3f} ms vs plain {plain_ms:.1f} ms, "
+              f"library {lib_ms:.1f} ms, bound {bound_ms:.4f} ms")
+        if metric == "l2":
+            flat = ik[:, :2 * args.k].cpu().numpy()
+            t = time.perf_counter()
+            ex8._rerank_exact(q, flat, args.k)
+            record["rerank_gather_ms"] = (time.perf_counter() - t) * 1e3
+            print(f"exact re-rank of the B x 2k candidates: "
+                  f"{record['rerank_gather_ms']:.1f} ms (host)")
 
     # centroid pass (fused planner): Q = B queries against P centroids
     cents = torch.as_tensor(idx.levels[0].centroids, device=dev)
@@ -440,22 +609,21 @@ def main() -> int:
     lib_ms = cuda_ms(lambda: torch.topk(
         c2 - 2.0 * torch.matmul(q_dev, cents.T), kp, dim=1, largest=False))
     nc = cents.shape[0]
-    t_bytes = ((b + nc) * d * 4 + 2 * b * kp * 4) / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * b * nc * d / F32_FLOPS_PER_S * 1e3
+    bound_ms, bound_by = bound((b + nc) * d * 4 + 2 * b * kp * 4,
+                               2.0 * b * nc * d, F32_FLOPS_PER_S)
     kernels.append({
         "name": "scan_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scan_topk.cu",
         "replaces": "src/repro/kernels/scan_topk.py:168",
         "launches": launches["scan_topk"], "max_abs_err": err, "tol": tol,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": lib_ms,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": lib_ms,
         "shape": {"Q": b, "N": nc, "d": d, "k_pad": kp}})
     print(f"scan_topk: err {err:.3g} (tol {tol:.3g}), {ms:.3f} ms")
 
-    # assignment: the insert burst against the base centroids, and an
+    # assignment: an insert burst against the base centroids, and an
     # exact-tie case (a centroid duplicated at a smaller index)
-    xs = torch.as_tensor(new_x, device=dev)
+    xs = torch.as_tensor(all_x[1], device=dev)
     aux = (cents * cents).sum(1)
     ak, dk = ka.kmeans_assign_cuda(xs, cents, aux)
     ap, dp = ka.kmeans_assign_plain(xs, cents, aux)
@@ -484,17 +652,15 @@ def main() -> int:
     plain_ms = cuda_ms(lambda: ka.kmeans_assign_plain(xs, cents, aux))
     lib_ms = cuda_ms(lambda: torch.argmin(torch.cdist(xs, cents), dim=1))
     n_x = xs.shape[0]
-    t_bytes = ((n_x + nc) * d * 4 + n_x * 8) / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * n_x * nc * d / F32_FLOPS_PER_S * 1e3
+    bound_ms, bound_by = bound((n_x + nc) * d * 4 + n_x * 8,
+                               2.0 * n_x * nc * d, F32_FLOPS_PER_S)
     kernels.append({
         "name": "kmeans_assign", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
         "replaces": "src/repro/kernels/kmeans_assign.py:67",
         "launches": launches["kmeans_assign"], "max_abs_err": err,
-        "tol": tol, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": lib_ms,
+        "tol": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": lib_ms,
         "shape": {"N": n_x, "C": nc, "d": d, "tied_points": int(hit.sum())}})
     print(f"kmeans_assign: err {err:.3g} (tol {tol:.3g}), {ms:.3f} ms")
     torch.cuda.synchronize()
@@ -502,15 +668,208 @@ def main() -> int:
     # ---- where the time of one warm search_batch goes ------------------
     record["profile"] = profile_search(
         lambda: idx.search_batch(q, args.k, recall_target=0.9))
+    del idx, ex, ex8, snap, snap8, valid, plan, sel, qmask, ds, all_x
+    torch.cuda.empty_cache()
 
-    record.update(kernels=kernels, card=card)
+    # ---- path 3: the dynamic loop (paper Fig. 4) ------------------------
+    record["dynamic"] = run_dynamic(args, dev, start_path, end_path)
+    record.update(kernels=kernels, card=card, path_launches=path_launches,
+                  total_s=time.perf_counter() - t_start)
     (OUT_DIR / "record.json").write_text(json.dumps(record, indent=1))
+    print(f"chip_smoke: all paths passed in "
+          f"{record['total_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def dry_pass(idx, lam, tau):
+    """The maintenance pass that ``lam`` with commit threshold ``tau``
+    makes on the index's current statistics; the index is rolled back
+    after it (``checkpoint_index`` / ``restore_index``)."""
+    import dataclasses
+    from repro_torch.core import Maintainer, checkpoint_index, restore_index
+    ckpt, cfg = checkpoint_index(idx), idx.config
+    idx.config = dataclasses.replace(cfg, tau_ns=tau)
+    try:
+        return Maintainer(idx, lam).run()
+    finally:
+        idx.config = cfg
+        restore_index(idx, ckpt)
+
+
+def run_dynamic(args, dev, start_path, end_path) -> dict:
+    """The dynamic loop on the Wikipedia-style workload: build, profile
+    lambda on the card, then per month the insert burst, per-query APS
+    searches (which record access statistics), one maintenance pass, the
+    invariants, and one batched search through the f32 and the int8
+    executors against the exact ground truth (recall@10 on the card).
+
+    Maintenance is priced by lambda per query of a B-query scan, the
+    batched path that serves the month's queries; each month also runs,
+    and rolls back, the pass that the single-query lambda (the JAX
+    package's ``profile``) would make on the same statistics.
+
+    Fails when a pass's cost change net of refinement and level changes
+    differs from the sum of its committed actions' verify deltas (the
+    commit gate's accounting), no split commits, the invariants break,
+    int8 overlaps f32 by less than INT8_OVERLAP, or the int8 executor
+    patches its snapshot instead of rebuilding it.  A rise of the raw
+    cost (refinement moves points after the gate, in the reference too)
+    is reported per month, not gated."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (Maintainer, QuakeConfig, QuakeIndex,
+                                  get_executor, profile)
+    from repro_torch.core.cost_model import paper_tau_ns
+    from repro_torch.data.wikipedia import wikipedia_workload
+    from repro_torch.data.workload import IncrementalGroundTruth
+    k = 10
+    out = {"months": []}
+    t = time.perf_counter()
+    wl = wikipedia_workload(n_total=args.wiki_n, dim=args.dim,
+                            months=args.months,
+                            queries_per_month=max(args.batch,
+                                                  args.month_queries),
+                            seed=args.seed)
+    out["workload_s"] = time.perf_counter() - t
+    start_path()
+    # lambda per query, in device time: the serving batch's scan, which
+    # prices maintenance, and the single-query scan, whose pass is
+    # reported beside it.  tau is the paper's, rescaled to each lambda.
+    t = time.perf_counter()
+    lams = {f"batch{b}": profile(args.dim, device=dev, batch=b)
+            for b in (args.batch, 1)}
+    out["profile_s"] = time.perf_counter() - t
+    lam, lam_q = lams[f"batch{args.batch}"], lams["batch1"]
+    tau, tau_q = paper_tau_ns(lam), paper_tau_ns(lam_q)
+    card = card_line()
+    out["lambda"] = {name: {"c_fixed": m.c_fixed, "c_lin": m.c_lin,
+                            "c_sel": m.c_sel, "tau_ns": paper_tau_ns(m)}
+                     for name, m in lams.items()}
+    out["lambda"]["card"] = card
+    print(f"dynamic: lambda profiled on {card} (ns per query, device "
+          f"time; tau = 250 ns * lambda(500) / 1.2e6 ns):")
+    for name, m in lams.items():
+        print(f"  {name}: lambda(s) = {m.c_fixed:.3f} + {m.c_lin:.6f} s + "
+              f"{m.c_sel:.6f} s log2 s, tau = {paper_tau_ns(m):.5f} ns")
+    t = time.perf_counter()
+    idx = QuakeIndex.build(wl.initial_vectors, wl.initial_ids,
+                           config=QuakeConfig(metric="ip", tau_ns=tau),
+                           device=dev)
+    out["build_s"] = time.perf_counter() - t
+    print(f"dynamic: {len(wl.initial_ids)} initial vectors, "
+          f"{idx.num_partitions} partitions, built in {out['build_s']:.1f} "
+          f"s")
+    maint = Maintainer(idx, lam)
+    gt = IncrementalGroundTruth(wl.dataset, wl.initial_ids, device=dev)
+    ex8 = get_executor(idx, "int8")
+    seen_version = None      # index version the int8 snapshot last served
+    inserted, splits, q_splits = 0, 0, 0
+    print(f"month  vectors  parts    ins  pq_recall  pq_nprobe  pq_ms  splits "
+          f"merges rejected  cost_before  cost_after    priced  unpriced  "
+          f"maint_s | batch1: splits rejected | f32_rec  int8_rec  overlap")
+    for op in wl.operations:
+        if op.kind == "insert":
+            idx.insert(op.vectors, op.ids)
+            gt.insert(op.ids)
+            inserted += len(op.ids)
+            continue
+        row = {"month": len(out["months"]) + 1, "inserted": inserted}
+        inserted = 0
+        qs = op.queries
+        truth = gt.topk(qs, k)
+        n_pq = args.month_queries
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hits, nps = [], []
+        for qq, tt in zip(qs[:n_pq], truth):
+            r = idx.search(qq, k, recall_target=0.9)
+            hits.append(len(set(r.ids.tolist()) & set(tt.tolist())) / k)
+            nps.append(r.nprobe[0])
+        row.update(pq_queries=n_pq, pq_recall=float(np.mean(hits)),
+                   pq_nprobe=float(np.mean(nps)),
+                   pq_ms=(time.perf_counter() - t) / n_pq * 1e3)
+        t = time.perf_counter()
+        rq = dry_pass(idx, lam_q, tau_q)
+        row.update(batch1_s=time.perf_counter() - t,
+                   batch1_splits=rq.splits, batch1_merges=rq.merges,
+                   batch1_rejected=rq.rejected_splits + rq.rejected_merges,
+                   batch1_cost_before=rq.cost_before,
+                   batch1_cost_after=rq.cost_after)
+        q_splits += rq.splits
+        t = time.perf_counter()
+        rep = maint.run()
+        priced = sum(a["delta"] for a in rep.actions if a["committed"])
+        row.update(maint_s=time.perf_counter() - t, splits=rep.splits,
+                   merges=rep.merges, rejected=rep.rejected_splits
+                   + rep.rejected_merges, cost_before=rep.cost_before,
+                   cost_after=rep.cost_after, priced=priced,
+                   unpriced=rep.unpriced_cost, level_added=rep.level_added,
+                   level_removed=rep.level_removed)
+        splits += rep.splits
+        # the commit gate's accounting: the splits and merges it committed
+        # moved the cost by exactly the sum of their verify deltas
+        moved = rep.cost_after - rep.unpriced_cost - rep.cost_before
+        if abs(moved - priced) > 1e-6 * max(abs(rep.cost_before), 1.0):
+            fail(f"month {row['month']}: the committed actions moved the "
+                 f"cost by {moved:.6f}, their verify deltas sum to "
+                 f"{priced:.6f}")
+        try:
+            idx.check_invariants()
+        except AssertionError as e:
+            fail(f"month {row['month']}: invariants broke after "
+                 f"maintenance ({e!r})")
+        qb = qs[:args.batch]
+        rebuilds = ex8.full_rebuilds
+        changed = seen_version is not None and idx.version != seen_version
+        r32 = idx.search_batch(qb, k, recall_target=0.9)
+        r8 = idx.search_batch(qb, k, recall_target=0.9, storage_dtype="int8")
+        seen_version = idx.version
+        row.update(vectors=idx.num_vectors, partitions=idx.num_partitions,
+                   f32_recall=recall_at(r32.ids, truth[:args.batch]),
+                   int8_recall=recall_at(r8.ids, truth[:args.batch]),
+                   overlap=overlap(r8.ids, r32.ids),
+                   int8_rebuilds=ex8.full_rebuilds,
+                   int8_deltas=ex8.delta_refreshes)
+        out["months"].append(row)
+        print(f"{row['month']:5d} {row['vectors']:8d} {row['partitions']:6d}"
+              f" {row['inserted']:6d} {row['pq_recall']:10.4f} "
+              f"{row['pq_nprobe']:10.2f} {row['pq_ms']:6.2f} "
+              f"{row['splits']:6d} {row['merges']:6d} {row['rejected']:8d} "
+              f"{row['cost_before']:12.3f} {row['cost_after']:11.3f} "
+              f"{row['priced']:9.3f} {row['unpriced']:9.3f} "
+              f"{row['maint_s']:8.2f} | {row['batch1_splits']:14d} "
+              f"{row['batch1_rejected']:8d} | {row['f32_recall']:7.4f} "
+              f"{row['int8_recall']:9.4f} {row['overlap']:8.4f}")
+        if row["overlap"] < INT8_OVERLAP:
+            fail(f"month {row['month']}: int8 overlaps f32 by "
+                 f"{row['overlap']:.4f} < {INT8_OVERLAP}")
+        if ex8.delta_refreshes != 0 or (
+                changed and ex8.full_rebuilds != rebuilds + 1):
+            fail(f"month {row['month']}: the int8 executor must rebuild "
+                 f"after a change (rebuilds {rebuilds} -> "
+                 f"{ex8.full_rebuilds}, deltas {ex8.delta_refreshes})")
+    if len(out["months"]) < 3:
+        fail(f"the dynamic loop ran {len(out['months'])} months, not 3")
+    if splits == 0:
+        fail("no maintenance split was committed over the dynamic loop")
+    rises = [(m["month"], m["cost_after"] - m["cost_before"])
+             for m in out["months"] if m["cost_after"] > m["cost_before"]]
+    out.update(splits=splits, batch1_splits=q_splits, raw_rises=rises)
+    print(f"dynamic: {splits} splits committed at lambda batch{args.batch}; "
+          f"{q_splits} would be at lambda batch1 (passes rolled back)")
+    print(f"dynamic: cost_after <= cost_before in "
+          f"{len(out['months']) - len(rises)} of {len(out['months'])} "
+          f"passes; raw rises (month, ns): "
+          + (", ".join(f"({m}, {d:+.3f})" for m, d in rises) or "none"))
+    out["launches"] = end_path("dynamic", ("scan_topk", "kmeans_assign",
+                                           "scan_topk_indexed",
+                                           "scan_topk_indexed_q8"))
+    return out
 
 
 if __name__ == "__main__":

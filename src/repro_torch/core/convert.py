@@ -13,6 +13,9 @@ float bits and would hide search differences).  The schema:
                                                 concatenated in order
   "level{l}.child_sizes" / ".children"          l > 0, concatenated
   "level{l}.parent"                             levels below the top
+  "level{l}.hits" / ".window"                   optional: the access
+                                                statistics (PartitionStats)
+  "maintenance_log"                             optional: list of dicts
   "beta_table"                                  optional: the APS beta
                                                 grid (default: computed)
 """
@@ -23,6 +26,7 @@ from typing import Dict
 
 import numpy as np
 
+from .cost_model import PartitionStats
 from .index import Level, QuakeConfig, QuakeIndex
 
 
@@ -32,7 +36,8 @@ def _split(flat: np.ndarray, sizes: np.ndarray):
 
 
 def index_to_arrays(index: QuakeIndex) -> Dict[str, object]:
-    """The index's state in the schema above."""
+    """The index's state in the schema above, as copies (maintenance
+    updates centroids and statistics in place)."""
     state: Dict[str, object] = {
         "dim": index.dim, "max_norm_sq": float(index._max_norm_sq),
         "num_levels": len(index.levels),
@@ -40,8 +45,8 @@ def index_to_arrays(index: QuakeIndex) -> Dict[str, object]:
     for f in dataclasses.fields(QuakeConfig):
         state[f"config.{f.name}"] = getattr(index.config, f.name)
     for l, level in enumerate(index.levels):
-        state[f"level{l}.centroids"] = np.asarray(level.centroids,
-                                                  dtype=np.float32)
+        state[f"level{l}.centroids"] = np.array(level.centroids,
+                                                dtype=np.float32)
         if l == 0:
             state["level0.sizes"] = level.sizes().astype(np.int64)
             state["level0.vectors"] = np.concatenate(
@@ -56,12 +61,18 @@ def index_to_arrays(index: QuakeIndex) -> Dict[str, object]:
         if level.parent is not None:
             state[f"level{l}.parent"] = np.asarray(level.parent,
                                                    dtype=np.int64)
+        state[f"level{l}.hits"] = np.array(level.stats.hits,
+                                           dtype=np.float64)
+        state[f"level{l}.window"] = int(level.stats.window)
+    state["maintenance_log"] = list(index.maintenance_log)
     return state
 
 
 def index_from_arrays(state: Dict[str, object], device="cuda"
                       ) -> QuakeIndex:
-    """A port ``QuakeIndex`` on ``device`` holding exactly ``state``."""
+    """A port ``QuakeIndex`` on ``device`` holding exactly ``state``, in
+    arrays of its own: maintenance updates centroids and parent maps in
+    place, which must not reach the index ``state`` came from."""
     cfg_fields = {f.name for f in dataclasses.fields(QuakeConfig)}
     cfg = QuakeConfig(**{
         key.split(".", 1)[1]: (v.item() if isinstance(v, np.generic) else v)
@@ -72,8 +83,11 @@ def index_from_arrays(state: Dict[str, object], device="cuda"
     if state.get("beta_table") is not None:
         idx._beta_table = np.asarray(state["beta_table"], dtype=np.float32)
     for l in range(int(state["num_levels"])):
-        cents = np.ascontiguousarray(state[f"level{l}.centroids"],
-                                     dtype=np.float32)
+        cents = np.array(state[f"level{l}.centroids"], dtype=np.float32)
+        stats = PartitionStats(
+            hits=np.array(state.get(f"level{l}.hits", np.zeros(0)),
+                          dtype=np.float64),
+            window=int(state.get(f"level{l}.window", 0)))
         if l == 0:
             sizes = np.asarray(state["level0.sizes"], dtype=np.int64)
             vectors = [np.ascontiguousarray(v) for v in _split(
@@ -84,16 +98,18 @@ def index_from_arrays(state: Dict[str, object], device="cuda"
             sqn = _split(np.asarray(state["level0.sqnorms"],
                                     dtype=np.float32), sizes)
             level = Level(centroids=cents, vectors=vectors, ids=ids,
-                          sqnorms=sqn)
+                          sqnorms=sqn, stats=stats)
         else:
             level = Level(centroids=cents, children=_split(
                 np.asarray(state[f"level{l}.children"], dtype=np.int64),
-                np.asarray(state[f"level{l}.child_sizes"], dtype=np.int64)))
+                np.asarray(state[f"level{l}.child_sizes"], dtype=np.int64)),
+                stats=stats)
         parent = state.get(f"level{l}.parent")
         if parent is not None:
-            level.parent = np.asarray(parent, dtype=np.int64)
+            level.parent = np.array(parent, dtype=np.int64)
         idx.levels.append(level)
     for j, ext in enumerate(idx.levels[0].ids):
         idx.id_map.update(dict.fromkeys(ext.tolist(), j))
     idx._aug_extra = [None] * len(idx.levels)
+    idx.maintenance_log = list(state.get("maintenance_log", []))
     return idx

@@ -29,21 +29,11 @@ from ..kernels import ops
 from . import aps as aps_mod
 from . import geometry, kmeans
 from .cost_model import PartitionStats
+from .device import resolve_device
 from .journal import MutationJournal
 
 __all__ = ["QuakeConfig", "QuakeIndex", "Level", "SearchResult",
            "resolve_device"]
-
-
-def resolve_device(device) -> torch.device:
-    """The torch device for ``device``; raises for a CUDA device when
-    CUDA is not available (there is no silent move to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run the port on "
-            "the CPU")
-    return dev
 
 
 @dataclass
@@ -58,7 +48,18 @@ class QuakeConfig:
     scan_impl: str = "auto"             # auto | numpy | torch | cuda
     enable_aps: bool = True             # ablation: static nprobe when False
     fixed_nprobe: int = 16              # used when enable_aps=False
-    # maintenance and level add/remove thresholds come with maintenance
+    # --- maintenance (paper §8.1; the JAX package's defaults) ---
+    tau_ns: float = 2.0                 # commit threshold tau; the paper's
+                                        # 250 ns rescaled to a profiled
+                                        # lambda is cost_model.paper_tau_ns
+    alpha: float = 0.9                  # split access-scaling
+    refine_radius: int = 50             # r_f
+    refine_iters: int = 1
+    min_partition_size: int = 32        # merge candidates below this size
+    default_access_freq: float = 0.05   # prior before stats exist
+    # --- levels ---
+    level_add_threshold: int = 4096     # add a top level when N_top exceeds
+    level_remove_threshold: int = 64    # drop the top level when N_top below
     # --- snapshot refresh (delta path, paper §8.2) ---
     snapshot_headroom: float = 1.5     # slack on snapshot slot capacity
     snapshot_max_dirty_frac: float = 0.5  # delta-refresh while dirty
@@ -85,9 +86,18 @@ class Level:
     def num_partitions(self) -> int:
         return self.centroids.shape[0]
 
+    def partition_size(self, j: int) -> int:
+        store = self.vectors if self.vectors is not None else self.children
+        return len(store[j])
+
     def sizes(self) -> np.ndarray:
         store = self.vectors if self.vectors is not None else self.children
         return np.asarray([len(s) for s in store])
+
+    def sizes_of(self, idx) -> np.ndarray:
+        """Sizes of just the given partitions."""
+        store = self.vectors if self.vectors is not None else self.children
+        return np.asarray([len(store[j]) for j in np.asarray(idx).ravel()])
 
 
 @dataclass
@@ -122,10 +132,12 @@ class QuakeIndex:
         self.levels: List[Level] = []
         self.id_map: Dict[int, int] = {}     # external id -> level-0 partition
         self.journal = MutationJournal()
+        self._rng = np.random.default_rng(self.config.seed)
         self.geometry_dim = dim if self.config.metric == "l2" else dim + 1
         self._beta_table = geometry.betainc_table(self.geometry_dim)
         self._max_norm_sq = 1e-12           # MIPS augmentation constant M^2
         self._aug_extra: List[Optional[np.ndarray]] = []
+        self.maintenance_log: List[dict] = []
 
     # ------------------------------------------------------------------
     # Construction
@@ -180,6 +192,15 @@ class QuakeIndex:
         self.levels.append(Level(centroids=cents, children=children))
         self._aug_extra = [None] * len(self.levels)
         self.journal.record(reason="level_add")
+
+    def remove_top_level(self) -> None:
+        """Drop the top level (paper §4.2.1 Remove Level): the level below
+        is then scanned fully at query time."""
+        assert len(self.levels) >= 2
+        self.levels.pop()
+        self.levels[-1].parent = None
+        self._aug_extra = [None] * len(self.levels)
+        self.journal.record(reason="level_remove")
 
     # ------------------------------------------------------------------
     # Metric helpers
@@ -365,7 +386,8 @@ class QuakeIndex:
         (``multiquery.batch_search``): APS-planned per-query probe sets
         run as multi-round early-exit probe rounds (Algorithm 2), each a
         packed partition-union scan on the index's device.  ``rounds=1``
-        forces one fixed-plan scan; ``storage_dtype`` is "f32" or "bf16".
+        forces one fixed-plan scan; ``storage_dtype`` is "f32", "bf16" or
+        "int8" (IVF-residual codes, re-ranked exactly).
         Returns ``multiquery.BatchResult``."""
         from .multiquery import batch_search  # late: avoid import cycle
         return batch_search(self, queries, k, nprobe=nprobe,

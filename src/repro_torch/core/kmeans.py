@@ -1,13 +1,14 @@
-"""k-means for partition construction, and nearest-centroid assignment.
+"""k-means for partition construction, split and refinement, and
+nearest-centroid assignment.
 
 Lloyd iterations run on the index's device as a plain loop: one
 ``torch.matmul`` distance matrix per step (the JAX package leaves the same
 GEMM to XLA) and ``index_add_`` for the cluster sums.  Empty clusters are
 reseeded to the points currently farthest from their centroid, keeping
 all k clusters alive.  Seeding stays numpy with the same generator calls
-as the JAX package, so both draw the same initial centroids.
-
-Split and refinement (maintenance) come with the maintenance port.
+as the JAX package, so both draw the same initial centroids.  Every entry
+point takes the caller's ``device`` (the index's); like ``QuakeIndex`` it
+defaults to the card and raises without CUDA.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 
 from ..kernels import ops
 from ..kernels.ref import pairwise_l2_sq
+from .device import resolve_device
 
 Tensor = torch.Tensor
 
@@ -45,9 +47,10 @@ def _lloyd(xs: Tensor, init_c: Tensor, k: int, iters: int
 
 
 def kmeans(x: np.ndarray, k: int, iters: int = 10, seed: int = 0,
-           device="cpu") -> Tuple[np.ndarray, np.ndarray]:
+           device="cuda") -> Tuple[np.ndarray, np.ndarray]:
     """x (n, d) numpy -> (centroids (k, d), assignments (n,)) as numpy,
     with the Lloyd steps on ``device``."""
+    device = resolve_device(device)
     n, d = x.shape
     k = min(k, n)
     rng = np.random.default_rng(seed)
@@ -62,14 +65,14 @@ _ASSIGN_HOST_MAX = 1 << 22   # n*p at or below this: host GEMM off the card
 
 
 def assign(x: np.ndarray, centroids: np.ndarray, impl: str = "auto",
-           device="cpu") -> np.ndarray:
+           device="cuda") -> np.ndarray:
     """Nearest-centroid assignment of host points.
 
     On a CUDA ``device`` it always runs the assignment kernel.  Elsewhere
     small problems (maintenance-sized, n*p <= 2^22) take a host GEMM, as
     in the JAX package off the TPU, and larger ones the kernel path's
     plain version."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     if (impl == "auto" and dev.type != "cuda"
             and x.shape[0] * centroids.shape[0] <= _ASSIGN_HOST_MAX):
         xs = np.asarray(x, dtype=np.float32)
@@ -81,3 +84,55 @@ def assign(x: np.ndarray, centroids: np.ndarray, impl: str = "auto",
         torch.as_tensor(np.asarray(centroids, dtype=np.float32), device=dev),
         impl=impl)
     return a.cpu().numpy()
+
+
+def split_two(x: np.ndarray, iters: int = 8, seed: int = 0, device="cuda"
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """2-means split of one partition (paper §4.2.1 Split) on ``device``:
+    (2 centroids, assignment in {0, 1}).  If 2-means puts every point on
+    one side, the split falls back to the median along the principal axis
+    (host numpy, as in the JAX package), so it is always well defined."""
+    if x.shape[0] < 2:
+        raise ValueError("cannot split a partition with < 2 vectors")
+    c, a = kmeans(x, 2, iters=iters, seed=seed, device=device)
+    if (a == 0).all() or (a == 1).all():
+        center = x.mean(0)
+        xc = x - center
+        v = np.ones(x.shape[1], dtype=np.float64)
+        for _ in range(8):               # power iteration
+            v = xc.T @ (xc @ v)
+            v /= max(np.linalg.norm(v), 1e-12)
+        proj = xc @ v
+        a = (proj > np.median(proj)).astype(np.int32)
+        if (a == 0).all() or (a == 1).all():   # all projections equal
+            a = (np.arange(x.shape[0]) % 2).astype(np.int32)
+        c = np.stack([x[a == 0].mean(0),
+                      x[a == 1].mean(0)]).astype(np.float32)
+    return c, a
+
+
+def refine(parts: list, centroids: np.ndarray, iters: int = 1,
+           device="cuda") -> Tuple[np.ndarray, list]:
+    """Partition refinement (paper §4.2.1): Lloyd steps on ``device``
+    seeded by the current centroids over the union of the partitions'
+    vectors, then reassignment.  ``parts`` is a list of (vectors (s_j, d),
+    ids (s_j,)) aligned with the rows of ``centroids``.  Returns
+    (new_centroids, new_parts); a partition left empty keeps its old
+    centroid."""
+    device = resolve_device(device)
+    xs = np.concatenate([p[0] for p in parts], axis=0)
+    ids = np.concatenate([p[1] for p in parts], axis=0)
+    k = centroids.shape[0]
+    c, a = _lloyd(
+        torch.as_tensor(np.ascontiguousarray(xs, dtype=np.float32),
+                        device=device),
+        torch.as_tensor(np.asarray(centroids, dtype=np.float32),
+                        device=device), k, iters)
+    c, a = c.cpu().numpy(), a.cpu().numpy()
+    new_parts = []
+    for j in range(k):
+        sel = a == j
+        new_parts.append((xs[sel], ids[sel]))
+        if not sel.any():
+            c[j] = centroids[j]
+    return c, new_parts

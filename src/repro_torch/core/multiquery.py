@@ -12,7 +12,10 @@ read is shared by all queries that probe it:
   2. **Pack**: the probe sets become one frequency-ranked partition union
      plus a ``(B, U)`` mask, on the device (``ops.pack_round_masked``).
   3. **Scan**: ``ops.scan_selected_topk`` — the ``scan_topk_indexed``
-     kernel reads each selected partition once per tile of queries.
+     kernel reads each selected partition once per tile of queries; for
+     int8 storage ``ops.scan_selected_topk_q8`` (the
+     ``scan_topk_indexed_q8`` kernel) scans IVF-residual codes for the
+     top-2k, re-ranked exactly from a host f32 mirror.
   4. **Rounds** (Algorithm 2): APS-planned searches run geometrically
      growing probe rounds (``run_round_loop``); each round scans the live
      queries' next probes (plus every not-yet-scanned probe that lands in
@@ -23,7 +26,8 @@ read is shared by all queries that probe it:
 The executor serves a cached ``IndexSnapshot`` kept coherent through the
 index's mutation journal: dirty-partition deltas patch only the touched
 rows; structural changes or capacity overflow rebuild it.  Storage is
-f32 or bf16; int8 comes with a later slice.
+f32, bf16 or int8; an int8 snapshot is requantized by a full rebuild on
+every journal delta.
 """
 from __future__ import annotations
 
@@ -36,13 +40,14 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from ..kernels.ref import MASK_DIST
+from ..kernels.ref import MASK_DIST, quantize_int8_residual
 from . import aps as aps_mod
 from .index import QuakeIndex
 from .snapshot import IndexSnapshot
 
-STORAGE_DTYPES = ("f32", "bf16")
+STORAGE_DTYPES = ("f32", "bf16", "int8")
 U_BUCKET = 8        # union widths round up to a multiple of this
+Q8_PARTS = 64       # partitions quantized at once (bounds f32 temporaries)
 
 
 @dataclass
@@ -746,16 +751,16 @@ class BatchedSearchExecutor:
     ``config.snapshot_max_dirty_frac * P`` dirty partitions rebuild it
     with ``config.snapshot_headroom`` slack capacity.
 
-    ``storage_dtype`` is "f32" (exact) or "bf16" (half the scan bytes;
-    products accumulate in f32); "int8" comes with the int8 slice.
+    ``storage_dtype`` is "f32" (exact), "bf16" (half the scan bytes;
+    products accumulate in f32) or "int8" (IVF-residual SQ8 codes, a
+    quarter of the bytes; any journal delta requantizes by a full
+    rebuild).  With ``int8_rerank`` the int8 scan keeps the top-2k and
+    re-ranks them exactly from a compact host f32 mirror of the level-0
+    rows.
     """
 
     def __init__(self, index: QuakeIndex, storage_dtype: str = "f32",
-                 planner: str = "vectorized"):
-        if storage_dtype == "int8":
-            raise NotImplementedError(
-                "int8 storage needs the q8 scan kernel, ported with the "
-                "int8 slice (ROADMAP Queue 1 item 9)")
+                 planner: str = "vectorized", int8_rerank: bool = True):
         if storage_dtype not in STORAGE_DTYPES:
             raise ValueError(f"storage_dtype must be one of "
                              f"{STORAGE_DTYPES}, got {storage_dtype!r}")
@@ -764,6 +769,9 @@ class BatchedSearchExecutor:
         self.index = index
         self.storage_dtype = storage_dtype
         self.planner = planner
+        self.int8_rerank = int8_rerank
+        self._mirror = None      # int8 re-rank: level-0 rows (N, d) host
+        self._mirror_base = None  # (P,) first mirror row of each partition
         self._snap = None
         self._key = None         # fingerprint the snapshot reflects
         self._valid = None       # (P, S_cap) bool, device
@@ -794,12 +802,22 @@ class BatchedSearchExecutor:
         cap = max(int(math.ceil(max_sz * headroom)), 1)
         if self._snap is not None:
             cap = max(cap, int(self._snap.capacity))
+        self._snap = None        # drop the old tensors before the new ones
         snap = IndexSnapshot.from_index(self.index, capacity=cap)
         self._valid = snap.ids >= 0
         self._flat_ids = snap.ids.cpu().numpy().reshape(-1)
         self._sizes = snap.sizes.cpu().numpy()
         if self.storage_dtype == "bf16":
             snap = replace(snap, data=snap.data.to(torch.bfloat16))
+        elif self.storage_dtype == "int8":
+            if self.int8_rerank:
+                sizes = lvl0.sizes().astype(np.int64)
+                self._mirror = np.concatenate(
+                    [np.asarray(v, dtype=np.float32) for v in lvl0.vectors]
+                    + [np.zeros((0, self.index.dim), np.float32)])
+                self._mirror_base = np.concatenate(
+                    [[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+            snap = _quantize_snapshot(snap)
         self._snap = snap
         self.planner_cache.ensure_fresh()
         self._key = self._fingerprint()
@@ -810,6 +828,8 @@ class BatchedSearchExecutor:
         """Patch the dirty partition rows instead of a rebuild.  False when
         the delta does not apply (structural change, capacity overflow,
         dirty set too large); the caller then rebuilds."""
+        if self._snap.scales is not None:
+            return False          # int8: requantize by a full rebuild
         idx = self.index
         lvl0 = idx.levels[0]
         p_real = lvl0.num_partitions
@@ -852,6 +872,30 @@ class BatchedSearchExecutor:
         if delta is None or not self._refresh_delta(delta):
             self.refresh()
         return self._snap
+
+    def _rerank_exact(self, q: np.ndarray, flat: np.ndarray, k: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact f32 re-rank of the int8 scan's candidates ``flat`` (B, 2k)
+        from the host mirror: float64 distances and a stable argsort, as
+        in the JAX package.  Returns (dists (B, k), flat idx (B, k)),
+        ``inf`` / -1 on misses."""
+        b, k2 = flat.shape
+        cap = self._snap.capacity
+        f = np.maximum(flat, 0)
+        rows = np.where(flat >= 0, self._mirror_base[f // cap] + f % cap, 0)
+        if self._mirror.shape[0] == 0:
+            x = np.zeros((b, k2, q.shape[1]), dtype=np.float32)
+        else:
+            x = self._mirror[rows.reshape(-1)].reshape(b, k2, -1)
+        if self.index.config.metric == "l2":
+            diff = x - q[:, None, :]
+            de = np.einsum("bkd,bkd->bk", diff, diff, dtype=np.float64)
+        else:
+            de = -np.einsum("bkd,bd->bk", x, q, dtype=np.float64)
+        de = np.where(flat >= 0, de, np.inf)
+        order = np.argsort(de, axis=1, kind="stable")[:, :k]
+        return (np.take_along_axis(de, order, axis=1),
+                np.take_along_axis(flat, order, axis=1))
 
     def _to_result_ids(self, flat: np.ndarray) -> np.ndarray:
         return np.where(flat >= 0, self._flat_ids[np.maximum(flat, 0)],
@@ -899,13 +943,25 @@ class BatchedSearchExecutor:
             else torch.as_tensor(plan.sel, device=dev)
         qmask_dev = plan.qmask_dev if plan.qmask_dev is not None \
             else torch.as_tensor(plan.qmask, device=dev)
-        dd, flat = ops.scan_selected_topk(
-            torch.as_tensor(q, device=dev), snap.data, self._valid,
-            sel_dev, qmask_dev, k, metric=self.index.config.metric,
-            impl=impl)
-        # quakecheck: allow-sync(result boundary: BatchResult is a host contract)
-        dd = dd.double().cpu().numpy()
-        flat = flat.cpu().numpy()  # quakecheck: allow-sync(result boundary)
+        q_dev = torch.as_tensor(q, device=dev)
+        metric = self.index.config.metric
+        rerank = snap.scales is not None and self._mirror is not None
+        if snap.scales is not None:          # int8 residual codes
+            dd, flat = ops.scan_selected_topk_q8(
+                q_dev, snap.data, snap.scales, self._valid, sel_dev,
+                qmask_dev, 2 * k if rerank else k, metric=metric,
+                centroids=snap.centroids, impl=impl)
+        else:
+            dd, flat = ops.scan_selected_topk(
+                q_dev, snap.data, self._valid, sel_dev, qmask_dev, k,
+                metric=metric, impl=impl)
+        if rerank:
+            # quakecheck: allow-sync(int8 rerank gathers from the host f32 mirror)
+            dd, flat = self._rerank_exact(q, flat.cpu().numpy(), k)
+        else:
+            # quakecheck: allow-sync(result boundary: BatchResult is a host contract)
+            dd = dd.double().cpu().numpy()
+            flat = flat.cpu().numpy()  # quakecheck: allow-sync(result boundary)
         dd = np.where(dd >= MASK_DIST, np.inf, dd)
         sizes_sel = self._sizes[plan.sel[:plan.n_real]]
         return BatchResult(
@@ -942,9 +998,15 @@ class BatchedSearchExecutor:
             comparisons = vectors
         st = {"partitions": int(n_real), "vectors": vectors,
               "comparisons": comparisons}
-        d, flat = ops.scan_selected_topk(
-            q_dev, snap.data, self._valid, sel_dev, qmask_dev, k_keep,
-            metric=self.index.config.metric, impl=impl)
+        if snap.scales is not None:          # int8 residual codes
+            d, flat = ops.scan_selected_topk_q8(
+                q_dev, snap.data, snap.scales, self._valid, sel_dev,
+                qmask_dev, k_keep, metric=self.index.config.metric,
+                centroids=snap.centroids, impl=impl)
+        else:
+            d, flat = ops.scan_selected_topk(
+                q_dev, snap.data, self._valid, sel_dev, qmask_dev, k_keep,
+                metric=self.index.config.metric, impl=impl)
         return d, flat, st
 
     def _search_rounds(self, q: np.ndarray, k: int, target: float,
@@ -959,18 +1021,24 @@ class BatchedSearchExecutor:
         q_dev = torch.as_tensor(q, device=self.device)
         seq_dev = rplan.seq_dev if rplan.seq_dev is not None \
             else torch.as_tensor(rplan.seq, device=self.device)
+        rerank = snap.scales is not None and self._mirror is not None
+        k_keep = 2 * k if rerank else k
 
         def scan_round(take, kept):
-            return self.scan_probe_round(q_dev, seq_dev, take, kept, k,
+            return self.scan_probe_round(q_dev, seq_dev, take, kept, k_keep,
                                          snap=snap, impl=impl,
                                          seq_host=rplan.seq)
 
         td, ti, nprobe, r_est, n_rounds, trace, stats = run_round_loop(
             rplan, k, target, idx._beta_table, _batch_rho_fn(idx, q),
-            scan_round, rounds=rounds, k_keep=k, device=self.device)
-        # quakecheck: allow-sync(result boundary: BatchResult is a host contract)
-        dd = td.double().cpu().numpy()[:, :k]
-        flat = ti.cpu().numpy()[:, :k]  # quakecheck: allow-sync(result boundary)
+            scan_round, rounds=rounds, k_keep=k_keep, device=self.device)
+        if rerank:
+            # quakecheck: allow-sync(int8 rerank gathers from the host f32 mirror)
+            dd, flat = self._rerank_exact(q, ti.cpu().numpy(), k)
+        else:
+            # quakecheck: allow-sync(result boundary: BatchResult is a host contract)
+            dd = td.double().cpu().numpy()[:, :k]
+            flat = ti.cpu().numpy()[:, :k]  # quakecheck: allow-sync(result boundary)
         dd = np.where(dd >= MASK_DIST, np.inf, dd)
         return BatchResult(
             ids=self._to_result_ids(flat), dists=dd,
@@ -979,6 +1047,22 @@ class BatchedSearchExecutor:
             comparisons=stats["comparisons"],
             nprobe=nprobe, recall_estimate=r_est,
             rounds=n_rounds, round_trace=trace)
+
+
+def _quantize_snapshot(snap: IndexSnapshot) -> IndexSnapshot:
+    """The snapshot with its f32 rows replaced by IVF-residual int8 codes
+    and per-slot scales, quantized on the device ``Q8_PARTS`` partitions
+    at a time so the f32 temporaries stay small."""
+    data = snap.data
+    codes = torch.empty(data.shape, dtype=torch.int8, device=data.device)
+    scales = torch.empty(data.shape[:2], dtype=torch.float32,
+                         device=data.device)
+    for p0 in range(0, data.shape[0], Q8_PARTS):
+        c, sc = quantize_int8_residual(data[p0:p0 + Q8_PARTS],
+                                       snap.centroids[p0:p0 + Q8_PARTS])
+        codes[p0:p0 + Q8_PARTS] = c
+        scales[p0:p0 + Q8_PARTS] = sc
+    return replace(snap, data=codes, scales=scales)
 
 
 def get_executor(index: QuakeIndex,

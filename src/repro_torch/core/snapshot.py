@@ -3,7 +3,8 @@
 ``IndexSnapshot.from_index`` pads the ragged level-0 partitions into a
 dense ``(P, S_cap, d)`` tensor on the index's device, the operand of the
 batched executor's scans.  ``build_patch`` / ``apply_delta`` refresh only
-the partitions a journal delta dirtied.  The sharded engine that serves
+the partitions a journal delta dirtied; an int8 snapshot (``scales`` set)
+cannot be patched and is rebuilt instead.  The sharded engine that serves
 these snapshots across devices in the JAX package comes with a later
 slice.
 """
@@ -37,17 +38,20 @@ class SnapshotPatch:
 class IndexSnapshot:
     """Dense view of the base level, on one device.
 
-    data:      (P, S_cap, d)  padded partition contents (f32 or bf16)
+    data:      (P, S_cap, d)  padded partition contents (f32, bf16, or
+                              int8 residual codes)
     ids:       (P, S_cap)     external ids (int32), -1 on padding
     centroids: (P, d)
     sizes:     (P,)           partition sizes
     beta_table:(1024,)        regularized-incomplete-beta grid
+    scales:    (P, S_cap)     per-slot dequantization scales (int8 only)
     """
     data: Tensor
     ids: Tensor
     centroids: Tensor
     sizes: Tensor
     beta_table: Tensor
+    scales: Optional[Tensor] = None
 
     @property
     def num_partitions(self) -> int:
@@ -170,6 +174,9 @@ class IndexSnapshot:
         snapshot stays readable; ``donate=True`` writes into this
         snapshot's tensors in place (``index_copy_``), so the refresh
         costs O(dirty rows) and this snapshot is the result."""
+        if self.scales is not None:
+            raise ValueError("apply_delta does not support quantized "
+                             "(int8) snapshots; rebuild instead")
         if len(patch.rows) == 0:
             return self
         if int(patch.rows.max()) >= self.num_partitions:

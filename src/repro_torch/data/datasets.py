@@ -96,3 +96,8 @@ def queries_near(ds: VectorDataset, n_queries: int, seed: int = 1,
     q = ds.vectors[base] + rng.normal(
         size=(n_queries, ds.dim)).astype(np.float32) * jitter
     return q.astype(np.float32)
+
+
+def zipf_weights(n: int, a: float = 1.1) -> np.ndarray:
+    w = 1.0 / np.arange(1, n + 1, dtype=np.float64) ** a
+    return w / w.sum()

@@ -38,6 +38,11 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
         # B, U, S, d, K, Uc, is_bf16, l2, stream
         "scan_indexed": "ppppppppppiiiiiiiip",
     },
+    "scan_topk_indexed_q8": {
+        # q_codes, q_scales, codes, scales, aux, qc, valid, nrows, sel,
+        # qmask, part_d, part_i, run_d, run_i, B, U, S, d, K, Uc, l2, stream
+        "scan_indexed_q8": "ppppppppppppppiiiiiiip",
+    },
     "scan_topk": {
         # q, xs, valid, part_d, part_i, out_d, out_i,
         # Q, N, d, R, K, is_bf16, l2, stream

@@ -1,17 +1,21 @@
-// Shared body of the two scan kernels (scan_topk_indexed.cu, scan_topk.cu).
+// Shared body of the scan kernels (scan_topk_indexed.cu, scan_topk.cu,
+// scan_topk_indexed_q8.cu).
 //
-// Both compute, for a set of queries over blocks of database rows, the
-// ascending top-K of   aux[row] + coef * (q . x[row])   with
-// aux = ||x||^2 (L2, coef = -2) or 0 (IP, coef = -1), plus MASK_DIST on
-// rows whose valid flag is 0.  ||q||^2 is added by the caller.  Order is
-// lexicographic on (distance, flat index), so equal distances keep the
-// smaller index and the result does not depend on block scheduling.
+// Each computes, for a set of queries over blocks of database rows, the
+// ascending top-K of a per-row distance, MASK_DIST on rows whose valid
+// flag is 0.  The f32/bf16 scans use  aux[row] + coef * (q . x[row])  with
+// aux = ||x||^2 (L2, coef = -2) or 0 (IP, coef = -1); the int8 scan its
+// dequantized form (scan_topk_indexed_q8.cu).  ||q||^2 is added by the
+// caller.  Order is lexicographic on (distance, flat index), so equal
+// distances keep the smaller index and the result does not depend on
+// block scheduling.
 //
 // Pass one (one block per (row block, tile of WARPS queries)): each warp
 // owns one query.  Rows are staged TILE_ROWS at a time in shared memory
-// (row stride d + 1, so lane r reading row r hits distinct banks); lane r
-// computes the distance of row r; candidates below the warp's running
-// K-th distance are appended to a per-warp buffer of BUF >= K + 32
+// by a row policy (FloatRows, or Q8Rows for int8 codes) whose row stride
+// is padded by one word, so lane r reading row r hits distinct banks;
+// lane r computes the distance of row r; candidates below the warp's
+// running K-th distance are appended to a per-warp buffer of BUF >= K + 32
 // entries, which is bitonic-sorted and cut back to K when it would
 // overflow.  Rows are visited in increasing index, so a candidate equal
 // to the K-th distance always loses the tie and strict "<" is exact.
@@ -144,45 +148,64 @@ __host__ inline size_t partial_smem_bytes(int d, int K) {
          + sizeof(int) * (size_t)WARPS * buf;
 }
 
-// Scan rows [0, nrows) of one row block (x points at its first row, valid
-// at its first flag or is null) for every active warp's query.  Every
-// thread of the block must call this: it synchronises the block.
-template <typename T>
-__device__ void scan_block_rows(const T* __restrict__ x,
-                                const uint8_t* __restrict__ valid,
-                                int nrows, int base_idx, int d, float coef,
-                                bool l2, bool warp_active,
-                                const float* qv, float* xs, WarpTopK& top) {
+// Scan rows [0, nrows) of one row block for every active warp's query.
+// ``rows`` is the row policy: rows.stage(r0, nr, warp, lane) copies rows
+// [r0, r0 + nr) into shared memory (all threads), and rows.dist(r0, lane,
+// out) computes the distance of row r0 + lane from the staged copy and
+// returns whether the row is a candidate.  Every thread of the block must
+// call this: it synchronises the block.
+template <typename Rows>
+__device__ void scan_rows(const Rows& rows, int nrows, int base_idx,
+                          bool warp_active, WarpTopK& top) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ld = d + 1;
   for (int r0 = 0; r0 < nrows; r0 += TILE_ROWS) {
     const int nr = min(TILE_ROWS, nrows - r0);
     __syncthreads();                          // previous tile consumed
-    for (int r = warp; r < nr; r += WARPS) {
-      const T* src = x + (size_t)(r0 + r) * d;
-      for (int j = lane; j < d; j += 32) xs[r * ld + j] = to_f32(src[j]);
-    }
+    rows.stage(r0, nr, warp, lane);
     __syncthreads();
     if (warp_active) {
       float dist = INFINITY;
       bool ok = false;
-      if (lane < nr) {
-        const float* xr = xs + lane * ld;
-        float acc = 0.f, x2 = 0.f;
-        for (int j = 0; j < d; ++j) {
-          const float xv = xr[j];
-          acc = fmaf(qv[j], xv, acc);
-          x2 = fmaf(xv, xv, x2);
-        }
-        const bool v = valid == nullptr || valid[r0 + lane] != 0;
-        const float aux = (l2 ? x2 : 0.f) + (v ? 0.f : MASK_DIST);
-        dist = aux + coef * acc;
-        ok = v && dist < MASK_DIST;
-      }
+      if (lane < nr) ok = rows.dist(r0, lane, dist);
       top.push(lane, dist, base_idx + r0 + lane, ok);
     }
   }
 }
+
+// f32 or bf16 rows, staged as f32 with row stride d + 1; qv is the warp's
+// query in f32 (shared memory).
+template <typename T>
+struct FloatRows {
+  const T* x;                 // the row block's first row
+  const uint8_t* valid;       // its first flag, or null
+  int d;
+  float coef;
+  bool l2;
+  const float* qv;
+  float* xs;
+
+  __device__ void stage(int r0, int nr, int warp, int lane) const {
+    const int ld = d + 1;
+    for (int r = warp; r < nr; r += WARPS) {
+      const T* src = x + (size_t)(r0 + r) * d;
+      for (int j = lane; j < d; j += 32) xs[r * ld + j] = to_f32(src[j]);
+    }
+  }
+
+  __device__ bool dist(int r0, int lane, float& out) const {
+    const float* xr = xs + lane * (d + 1);
+    float acc = 0.f, x2 = 0.f;
+    for (int j = 0; j < d; ++j) {
+      const float xv = xr[j];
+      acc = fmaf(qv[j], xv, acc);
+      x2 = fmaf(xv, xv, x2);
+    }
+    const bool v = valid == nullptr || valid[r0 + lane] != 0;
+    const float aux = (l2 ? x2 : 0.f) + (v ? 0.f : MASK_DIST);
+    out = aux + coef * acc;
+    return v && out < MASK_DIST;
+  }
+};
 
 // Pass two: fold the K-lists part[b, l, :] (l < nlists, only where
 // qmask[b * qmask_stride + l] != 0, or all when qmask is null) into the

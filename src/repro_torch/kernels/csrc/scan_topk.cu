@@ -46,9 +46,10 @@ __global__ void __launch_bounds__(THREADS) scan_dense_partial_kernel(
     for (int j = lane; j < d; j += 32) qv[j] = to_f32(q[(size_t)b * d + j]);
     top.init(lane);
   }
-  scan_block_rows<T>(xs_g + (size_t)row0 * d,
-                     valid == nullptr ? nullptr : valid + row0, nrows, row0,
-                     d, coef, l2 != 0, active, qv, xs, top);
+  const FloatRows<T> rows{xs_g + (size_t)row0 * d,
+                          valid == nullptr ? nullptr : valid + row0, d, coef,
+                          l2 != 0, qv, xs};
+  scan_rows(rows, nrows, row0, active, top);
   if (active) {
     const size_t o = ((size_t)b * n_chunks + c) * K;
     top.write(lane, part_d + o, part_i + o);

@@ -57,9 +57,9 @@ __global__ void __launch_bounds__(THREADS) scan_indexed_partial_kernel(
     for (int j = lane; j < d; j += 32) qv[j] = to_f32(q[(size_t)b * d + j]);
     top.init(lane);
   }
-  scan_block_rows<T>(data + (size_t)p * S * d, valid + (size_t)p * S,
-                     nrows_p[p], p * S, d, coef, l2 != 0, active, qv, xs,
-                     top);
+  const FloatRows<T> rows{data + (size_t)p * S * d, valid + (size_t)p * S,
+                          d, coef, l2 != 0, qv, xs};
+  scan_rows(rows, nrows_p[p], p * S, active, top);
   if (active) {
     const size_t o = ((size_t)b * Uc + uc) * K;
     top.write(lane, part_d + o, part_i + o);

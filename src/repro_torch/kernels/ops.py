@@ -11,8 +11,8 @@ Dispatch policy (``impl``):
 
 The wrappers own un-padding and the terms the kernels leave out
 (``||q||^2`` / ``||x||^2``), so callers never see kernel constraints.
-Unlike the JAX kernel path, whose tile can clip ``k_pad`` below ``k``,
-every path here returns ``k`` columns.
+Unlike the JAX kernel paths (f32 and int8), whose tile can clip
+``k_pad`` below ``k``, every path here returns ``k`` columns.
 
 ``pack_union``, ``pack_round``, ``pack_round_masked`` and ``topk_merge``
 are plain PyTorch on whatever device their inputs live on; the JAX
@@ -168,6 +168,37 @@ def scan_selected_topk(queries: Tensor, data: Tensor, valid: Tensor,
             valid.contiguous(), sel.to(torch.int32).contiguous(),
             qmask.contiguous(), k_pad=_next_pow2(max(k_eff, 1)),
             metric=metric)
+        d, i = _add_q2_mark_misses(queries, dd[:, :k_eff], ii[:, :k_eff],
+                                   metric)
+    return ref.pad_topk(d, i, k)
+
+
+def scan_selected_topk_q8(queries: Tensor, codes: Tensor, scales: Tensor,
+                          valid: Tensor, sel: Tensor, qmask: Tensor, k: int,
+                          *, metric: str = "l2",
+                          centroids: Optional[Tensor] = None,
+                          impl: str = "auto") -> Tuple[Tensor, Tensor]:
+    """int8 variant of ``scan_selected_topk`` (paper §8.2 compression):
+    ``codes`` (P, S, d) int8 with per-slot ``scales`` (P, S).  Queries are
+    quantized per row; with ``centroids`` (P, d) the codes are IVF
+    residuals (x = c_j + s * codes) and the exact f32 query-centroid term
+    is added per selected partition.  Returns ascending (dists (B, k),
+    flat idx (B, k)), k columns on every path."""
+    impl = _resolve(impl, codes)
+    s = codes.shape[1]
+    k_eff = min(k, sel.shape[0] * s)
+    if impl == "torch":
+        d, i = ref.scan_selected_q8_ref(queries, codes, scales, valid, sel,
+                                        qmask, k_eff, metric,
+                                        centroids=centroids)
+    else:
+        q_codes, q_scales, aux, qc = ref.q8_scan_operands(
+            queries, codes, scales, valid, sel, metric, centroids)
+        dd, ii = _scan_indexed_kernel.scan_topk_indexed_q8(
+            q_codes, q_scales, codes.contiguous(), scales.float().contiguous(),
+            aux, qc.contiguous(), valid.contiguous(),
+            sel.to(torch.int32).contiguous(), qmask.contiguous(),
+            k_pad=_next_pow2(max(k_eff, 1)), metric=metric)
         d, i = _add_q2_mark_misses(queries, dd[:, :k_eff], ii[:, :k_eff],
                                    metric)
     return ref.pad_topk(d, i, k)

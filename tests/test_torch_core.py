@@ -55,6 +55,9 @@ def export_jax_index(idx) -> dict:
             state[f"level{l}.children"] = np.concatenate(lv.children)
         if lv.parent is not None:
             state[f"level{l}.parent"] = np.asarray(lv.parent)
+        state[f"level{l}.hits"] = np.asarray(lv.stats.hits)
+        state[f"level{l}.window"] = int(lv.stats.window)
+    state["maintenance_log"] = list(idx.maintenance_log)
     return state
 
 
@@ -232,10 +235,10 @@ def test_datasets_are_copies_of_reference():
 
 def test_kmeans_seeds_like_reference_and_converges():
     ds = jds.clustered(600, 8, n_clusters=6, seed=1)
-    c0_t, _ = kmeans.kmeans(ds.vectors, 6, iters=0, seed=5)
+    c0_t, _ = kmeans.kmeans(ds.vectors, 6, iters=0, seed=5, device="cpu")
     c0_j, _ = jkmeans.kmeans(ds.vectors, 6, iters=0, seed=5)
     np.testing.assert_array_equal(c0_t, c0_j)     # same initial centroids
-    c_t, a_t = kmeans.kmeans(ds.vectors, 6, iters=8, seed=5)
+    c_t, a_t = kmeans.kmeans(ds.vectors, 6, iters=8, seed=5, device="cpu")
     c_j, a_j = jkmeans.kmeans(ds.vectors, 6, iters=8, seed=5)
     np.testing.assert_allclose(c_t, c_j, rtol=1e-4, atol=1e-4)
     assert np.mean(a_t == a_j) > 0.99
@@ -247,11 +250,13 @@ def test_assign_host_gate_and_kernel_path_match_reference():
     rng = np.random.default_rng(6)
     c = rng.normal(size=(40, 8)).astype(np.float32)
     x = rng.normal(size=(300, 8)).astype(np.float32)
-    np.testing.assert_array_equal(kmeans.assign(x, c), jkmeans.assign(x, c))
-    a_k = kmeans.assign(x, c, impl="cuda")     # kernel path, plain version
+    np.testing.assert_array_equal(kmeans.assign(x, c, device="cpu"),
+                                  jkmeans.assign(x, c))
+    # the kernel path, its plain version on the CPU
+    a_k = kmeans.assign(x, c, impl="cuda", device="cpu")
     assert np.mean(a_k == jkmeans.assign(x, c, impl="pallas")) > 0.99
     big = rng.normal(size=(110_000, 8)).astype(np.float32)  # n*p > 2^22
-    a_big = kmeans.assign(big, c)
+    a_big = kmeans.assign(big, c, device="cpu")
     assert np.mean(a_big == jkmeans.assign(big, c, impl="jnp")) > 0.999
 
 

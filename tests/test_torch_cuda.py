@@ -1,6 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
-Every test here needs an NVIDIA GPU and skips without one.  The file
+Every test here needs an NVIDIA GPU and skips without one.  The int8
+tests at the end hold the q8 kernel against its plain version and check
+that the int8 executor and a maintenance pass on a CUDA index launch
+their kernels.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine
 that has only PyTorch: from the repository root,
 
@@ -25,7 +28,7 @@ from repro_torch.core.convert import index_from_arrays, index_to_arrays
 from repro_torch.core.index import QuakeIndex
 from repro_torch.data import datasets
 from repro_torch.kernels import kmeans_assign as ka
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels import scan_topk as st
 from repro_torch.kernels import scan_topk_indexed as sti
 
@@ -239,3 +242,86 @@ def test_main_path_on_the_card_matches_cpu(dev):
     built = QuakeIndex.build(ds.vectors, num_partitions=32, kmeans_iters=4,
                              device=dev)
     built.check_invariants()
+
+
+# ---------------------------------------------------------------------------
+# int8: the q8 kernel, the int8 executor, maintenance on a CUDA index
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("p,s,d,b,u,k_pad", [
+    (40, 96, 32, 37, 17, 64),     # typical, B not a tile multiple
+    (9, 40, 4, 1, 9, 1),          # one word a row, one query, k_pad 1
+    (20, 300, 132, 13, 11, 1024),  # wide rows, the largest k_pad
+    (64, 64, 16, 64, 64, 256),    # union = all partitions, k_pad 256
+])
+def test_scan_topk_indexed_q8_matches_plain(dev, metric, p, s, d, b, u,
+                                            k_pad):
+    """The q8 kernel against its plain version on the same operands.
+    The int8 products are exact and the dequantization runs in the
+    reference's order with round-to-nearest intrinsics, so the distances
+    agree to rtol 1e-4 / atol 1e-3 (in practice bit for bit)."""
+    rng = np.random.default_rng(p + s + d)
+    cents = torch.as_tensor(rng.normal(size=(p, d)).astype(np.float32) * 4,
+                            device=dev)
+    data = cents[:, None, :] + torch.as_tensor(
+        rng.normal(size=(p, s, d)).astype(np.float32), device=dev)
+    codes, scales = sti.quantize_int8_residual(data, cents)
+    valid = torch.as_tensor(rng.random((p, s)) < 0.8, device=dev)
+    valid[1] = False                           # an empty partition
+    valid[2, s // 2:] = False                  # a short one
+    sel = torch.as_tensor(rng.choice(p, u, replace=False).astype(np.int32),
+                          device=dev)
+    qmask = torch.as_tensor(rng.random((b, u)) < 0.5, device=dev)
+    q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32),
+                        device=dev) * 4
+    q_codes, q_scales, aux, qc = ref.q8_scan_operands(
+        q, codes, scales, valid, sel, metric, cents)
+    args = (q_codes, q_scales, codes, scales, aux, qc, valid, sel, qmask)
+    before = sti.LAUNCHES_Q8.count
+    dk, ik = sti.scan_topk_indexed_q8(*args, k_pad=k_pad, metric=metric)
+    assert sti.LAUNCHES_Q8.count == before + 1
+    dp, ip_ = sti.scan_topk_indexed_q8_plain(*args, k_pad=k_pad,
+                                             metric=metric)
+    _same_topk(dk, ik, dp, ip_)
+    with pytest.raises(ValueError):            # d not a multiple of 4
+        sti.scan_topk_indexed_q8(q_codes[:, :-1].contiguous(), q_scales,
+                                 codes[:, :, :-1].contiguous(), *args[3:],
+                                 k_pad=k_pad, metric=metric)
+
+
+def test_int8_executor_on_the_card_launches_the_q8_kernel(dev):
+    ds = datasets.clustered(4000, 16, n_clusters=16, seed=0)
+    q = datasets.queries_near(ds, 48, seed=3)
+    cpu = QuakeIndex.build(ds.vectors, num_partitions=32, kmeans_iters=4,
+                           device="cpu")
+    gpu = index_from_arrays(index_to_arrays(cpu), device=dev)
+    for kw in (dict(nprobe=6), dict(), dict(rounds=1)):
+        before = sti.LAUNCHES_Q8.count
+        rg = gpu.search_batch(q, 10, storage_dtype="int8", **kw)
+        assert sti.LAUNCHES_Q8.count - before == rg.rounds
+        rc = cpu.search_batch(q, 10, storage_dtype="int8", **kw)
+        np.testing.assert_array_equal(rg.nprobe, rc.nprobe)
+        assert np.mean(rg.ids == rc.ids) >= 0.99
+
+
+def test_maintenance_on_the_card_runs_its_kernels(dev):
+    """One maintenance pass on a CUDA index: the 2-means and refinement
+    run on the card, the merge verify's assignment is the kmeans_assign
+    kernel, and profiling times the scan_topk kernel."""
+    from repro_torch.core import Maintainer, QuakeConfig, profile
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(4000, 16)).astype(np.float32)
+    idx = QuakeIndex.build(x, num_partitions=200, kmeans_iters=3,
+                           config=QuakeConfig(min_partition_size=64,
+                                              tau_ns=1.0), device=dev)
+    for qi in x[rng.integers(0, 4000, 200)]:
+        idx.search(qi, 10)
+    before = (ka.LAUNCHES.count, st.LAUNCHES.count)
+    lam = profile(16, sizes=(64, 256, 1024), repeats=2, device=dev)
+    assert min(lam.c_fixed, lam.c_lin, lam.c_sel) >= 0.0
+    assert st.LAUNCHES.count > before[1]
+    rep = Maintainer(idx).run()
+    assert rep.merges >= 1 and ka.LAUNCHES.count > before[0]
+    assert rep.cost_after <= rep.cost_before + 1e-6
+    idx.check_invariants()

@@ -326,6 +326,141 @@ def test_topk_merge_matches_reference_with_misses():
 
 
 # ---------------------------------------------------------------------------
+# int8 (IVF-residual SQ8) scan
+# ---------------------------------------------------------------------------
+
+def test_quantize_int8_matches_reference():
+    """Codes equal (round half to even and the same division in both);
+    scales to rtol 1e-6 (they are bit-equal here).  The rows include exact
+    .5 multiples of their scale, where a rounding rule would show."""
+    from repro.kernels.scan_topk_indexed import quantize_int8 as jq
+    from repro.kernels.scan_topk_indexed import quantize_int8_residual as jqr
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(6, 40, 24)).astype(np.float32) * 3.0
+    x[0, 0, :4] = [127.0, 0.5, 1.5, -2.5]     # scale 1: ties at .5
+    cents = rng.normal(size=(6, 24)).astype(np.float32) * 4.0
+    for got, want in ((sti.quantize_int8(_t(x)), jq(jnp.asarray(x))),
+                      (sti.quantize_int8_residual(_t(x), _t(cents)),
+                       jqr(jnp.asarray(x), jnp.asarray(cents)))):
+        assert got[0].dtype == torch.int8
+        np.testing.assert_array_equal(_n(got[0]), np.asarray(want[0]))
+        np.testing.assert_allclose(_n(got[1]), np.asarray(want[1]),
+                                   rtol=1e-6)
+    assert _n(sti.quantize_int8(_t(x))[0])[0, 0, :4].tolist() == \
+        [127, 0, 2, -2]
+
+
+def _q8_inputs(residual, p=16, s=64, d=24, b=8, u=10, seed=5):
+    """The JAX package's int8 test shape: tight clusters around scaled
+    centroids, queries near the selected ones."""
+    rng = np.random.default_rng(seed)
+    cents = rng.normal(size=(p, d)).astype(np.float32) * 4.0
+    data = cents[:, None, :] + rng.normal(size=(p, s, d)).astype(np.float32)
+    valid = rng.random((p, s)) < 0.9
+    sel = rng.choice(p, u, replace=False).astype(np.int32)
+    qmask = rng.random((b, u)) < 0.7
+    qs = (cents[sel[np.arange(b) % u]]
+          + rng.normal(size=(b, d))).astype(np.float32)
+    codes, scales = sti.quantize_int8_residual(_t(data), _t(cents)) \
+        if residual else sti.quantize_int8(_t(data))
+    return qs, codes, scales, valid, sel, qmask, cents
+
+
+def _firm(d_ref, tol):
+    """Positions whose reference distance is farther than ``tol`` from
+    both neighbours in its list (no near-tie that rounding may swap)."""
+    d = np.asarray(d_ref, np.float64)
+    gap = np.full(d.shape, np.inf)
+    step = np.abs(np.diff(d, axis=1))
+    gap[:, 1:] = step
+    gap[:, :-1] = np.minimum(gap[:, :-1], step)
+    return (d < 1e37) & (gap > tol)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("residual", [True, False])
+def test_scan_selected_q8_vs_reference(metric, residual):
+    """The port's int8 oracle (impl="torch") and its kernel path (the
+    kernel's plain version on CPU tensors) against the JAX package's
+    Pallas kernel in interpret mode.  Same codes, scales and query codes;
+    ``aux`` and ``qc`` are f32 sums taken in another order, so distances
+    agree to rtol 1e-4 / atol 1e-3 and ids are equal wherever the
+    reference has no near-tie (2k <= the tile: k = 10, S = 64)."""
+    qs, codes, scales, valid, sel, qmask, cents = _q8_inputs(residual)
+    k = 10
+    dj, ij = jops.scan_selected_topk_q8(
+        jnp.asarray(qs), jnp.asarray(_n(codes)), jnp.asarray(_n(scales)),
+        jnp.asarray(valid), jnp.asarray(sel), jnp.asarray(qmask), k,
+        metric=metric, centroids=jnp.asarray(cents) if residual else None)
+    dj, ij = np.asarray(dj), np.asarray(ij)
+    firm = _firm(dj, 1e-3)
+    assert firm.mean() > 0.9
+    for impl in ("torch", "cuda"):
+        dt, it = ops.scan_selected_topk_q8(
+            _t(qs), codes, scales, _t(valid), _t(sel), _t(qmask), k,
+            metric=metric, centroids=_t(cents) if residual else None,
+            impl=impl)
+        assert tuple(it.shape) == (8, k) and it.dtype == torch.int32
+        np.testing.assert_array_equal(_n(it)[firm], ij[firm])
+        assert _recall(it, ij) >= 0.999
+        _close_finite(dt, dj)
+
+
+def test_scan_selected_q8_returns_k_columns_past_capacity():
+    """P=4, S=8, k=20: the JAX int8 wrapper clips its tile's k_pad to
+    S=8 and returns 8 columns (ROADMAP Queue 3 item 2); the port returns
+    all 20, and its first 8 are the reference's."""
+    qs, codes, scales, valid, sel, qmask, cents = _q8_inputs(
+        True, p=4, s=8, d=8, b=3, u=4, seed=6)
+    qmask[:] = True
+    dj, ij = jops.scan_selected_topk_q8(
+        jnp.asarray(qs), jnp.asarray(_n(codes)), jnp.asarray(_n(scales)),
+        jnp.asarray(valid), jnp.asarray(sel), jnp.asarray(qmask), 20,
+        centroids=jnp.asarray(cents))
+    assert np.asarray(ij).shape == (3, 8)
+    live = int(valid[sel].sum())
+    for impl in ("torch", "cuda"):
+        dt, it = ops.scan_selected_topk_q8(
+            _t(qs), codes, scales, _t(valid), _t(sel), _t(qmask), 20,
+            centroids=_t(cents), impl=impl)
+        assert tuple(it.shape) == (3, 20)
+        assert ((_n(it) >= 0).sum(axis=1) == min(20, live)).all()
+        np.testing.assert_array_equal(_n(it)[:, :8], np.asarray(ij))
+        _close_finite(dt[:, :8], dj)
+
+
+def test_q8_plain_version_is_the_oracle_in_partition_order():
+    """The kernel's plain version orders the union by partition, so equal
+    distances keep the smaller flat index whatever the union order, and
+    an inert tail (duplicated slots under all-False masks) changes
+    nothing."""
+    qs, codes, scales, valid, sel, qmask, cents = _q8_inputs(True, seed=9)
+    codes[sel[1]] = codes[sel[0]]              # two identical partitions
+    scales[sel[1]] = scales[sel[0]]
+    valid[sel[1]] = valid[sel[0]]
+    qmask[:] = True
+    sel_t = _t(sel)
+    q_codes, q_scales, aux, qc = ref.q8_scan_operands(
+        _t(qs), codes, scales, _t(valid), sel_t, "ip")   # plain codes: qc 0
+    args = (q_codes, q_scales, codes, scales, aux)
+    d1, i1 = sti.scan_topk_indexed_q8_plain(*args, qc, _t(valid), sel_t,
+                                            _t(qmask), k_pad=64,
+                                            metric="ip")
+    tail = torch.cat([sel_t, sel_t[:1].expand(6)])
+    qm = torch.cat([_t(qmask), torch.zeros(8, 6, dtype=torch.bool)], 1)
+    qc2 = torch.cat([qc, torch.zeros(8, 6)], 1)
+    d2, i2 = sti.scan_topk_indexed_q8_plain(*args, qc2, _t(valid),
+                                            tail.flip(0), qm.flip(1),
+                                            k_pad=64, metric="ip")
+    assert torch.equal(d1, d2) and torch.equal(i1, i2)
+    lo, hi = sorted(sel[:2].tolist())
+    i1 = _n(i1)
+    for b in range(8):                     # the copy at the smaller id wins
+        ids = i1[b][np.isin(i1[b] // 64, [lo, hi]) & (i1[b] >= 0)]
+        assert (ids[::2] // 64 == lo).all() and (ids[1::2] // 64 == hi).all()
+
+
+# ---------------------------------------------------------------------------
 # kernel modules: dispatch, checks, launch counts, build
 # ---------------------------------------------------------------------------
 
@@ -365,6 +500,28 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_bad_operands():
         ka.kmeans_assign_cuda(q, data[0], torch.zeros(16))
     with pytest.raises(ValueError):
         ops.scan_topk(q, data[0], 4, impl="pallas")
+
+
+def test_q8_wrapper_takes_the_plain_version_on_cpu_and_refuses_operands():
+    qs, codes, scales, valid, sel, qmask, cents = _q8_inputs(True, d=16)
+    operands = ref.q8_scan_operands(_t(qs), codes, scales, _t(valid),
+                                    _t(sel), "l2", _t(cents))
+    args = (*operands[:2], codes, scales, *operands[2:], _t(valid),
+            _t(sel), _t(qmask))
+    before = sti.LAUNCHES_Q8.count
+    d1, i1 = sti.scan_topk_indexed_q8(*args, k_pad=16)
+    assert sti.LAUNCHES_Q8.count == before
+    d2, i2 = sti.scan_topk_indexed_q8_plain(*args, k_pad=16)
+    assert torch.equal(d1, d2) and torch.equal(i1, i2)
+    with pytest.raises(ValueError, match="CUDA"):
+        sti.scan_topk_indexed_q8_cuda(*args, k_pad=16)
+    with pytest.raises(ValueError, match="int8"):          # f32 "codes"
+        sti.scan_topk_indexed_q8_cuda(args[0], args[1], codes.float(),
+                                      *args[3:], k_pad=16)
+    with pytest.raises(ValueError, match="power of two"):
+        sti.scan_topk_indexed_q8_cuda(*args, k_pad=12)
+    with pytest.raises(ValueError, match="exceeds"):
+        sti.scan_topk_indexed_q8_cuda(*args, k_pad=2048)
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

@@ -19,6 +19,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import multiquery as jmq
 from repro.core.index import QuakeConfig as JConfig
@@ -27,6 +28,7 @@ from repro.data import datasets as jds
 from repro_torch.core import multiquery as mq
 from repro_torch.core.convert import index_from_arrays, index_to_arrays
 from repro_torch.core.index import QuakeIndex
+from repro_torch.core.snapshot import IndexSnapshot
 
 TRACE_KEYS = {"round_live", "round_partitions", "round_vectors",
               "round_comparisons", "round_kth", "round_wall_s",
@@ -213,8 +215,12 @@ def test_executor_contract():
     idx = QuakeIndex.build(
         jds.clustered(500, 8, n_clusters=4, seed=0).vectors,
         num_partitions=6, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        mq.BatchedSearchExecutor(idx, storage_dtype="int8")
+    ex8 = mq.BatchedSearchExecutor(idx, storage_dtype="int8")
+    snap8 = ex8.snapshot()
+    assert snap8.data.dtype == torch.int8 and snap8.scales is not None
+    with pytest.raises(ValueError, match="int8"):   # never patched
+        snap8.apply_delta(IndexSnapshot.build_patch(idx, [0],
+                                                    snap8.capacity))
     with pytest.raises(ValueError):
         mq.BatchedSearchExecutor(idx, storage_dtype="f16")
     ex = mq.BatchedSearchExecutor(idx)
@@ -224,3 +230,110 @@ def test_executor_contract():
     assert r.ids.shape == (0, 5)
     assert mq._round_windows(10) == jmq._round_windows(10)
     assert mq._round_windows(40, 3) == jmq._round_windows(40, 3)
+
+
+# ---------------------------------------------------------------------------
+# int8 storage: IVF-residual codes, the q8 scan, exact re-rank of the top-2k
+# ---------------------------------------------------------------------------
+
+def _firm(dists, tol=1e-4):
+    """Result positions with no near-tie in the reference's list."""
+    d = np.where(np.isfinite(dists), dists, 1e30)
+    gap = np.full(d.shape, np.inf)
+    step = np.abs(np.diff(d, axis=1))
+    gap[:, 1:] = step
+    gap[:, :-1] = np.minimum(gap[:, :-1], step)
+    return np.isfinite(dists) & (gap > tol * np.maximum(np.abs(d), 1.0))
+
+
+@pytest.mark.parametrize("mode", [dict(nprobe=6), dict(), dict(rounds=1)])
+def test_int8_executor_matches_reference(built, mode):
+    """The port's int8 executor against the JAX package's (its q8 Pallas
+    kernel in interpret mode) on one structure: the same probe counts,
+    rounds and scan footprint, and after the exact re-rank the same ids
+    wherever the reference's list has no near-tie; where the ids agree
+    the re-ranked distances are the same float64 numbers.  k = 10, so the
+    scan's 2k = 20 stays within the JAX kernel's tile (no clipped
+    k_pad)."""
+    metric, j, q, state = built
+    p = _port(state)
+    q = q[:24]
+    rj = j.search_batch(q, 10, storage_dtype="int8", **mode)
+    rt = p.search_batch(q, 10, storage_dtype="int8", **mode)
+    np.testing.assert_array_equal(rt.nprobe, rj.nprobe)
+    assert rt.rounds == rj.rounds
+    assert rt.vectors_scanned == rj.vectors_scanned
+    assert rt.partitions_scanned == rj.partitions_scanned
+    firm = _firm(rj.dists)
+    assert firm.mean() > 0.9
+    np.testing.assert_array_equal(rt.ids[firm], rj.ids[firm])
+    same = rt.ids == rj.ids
+    assert same.mean() >= 0.99
+    np.testing.assert_array_equal(rt.dists[same], rj.dists[same])
+    # the re-rank recovers the f32 executor's answer
+    r32 = p.search_batch(q, 10, **mode)
+    assert np.mean(rt.ids == r32.ids) >= 0.95
+
+
+@pytest.mark.parametrize("mode", [dict(nprobe=4), dict()])
+def test_int8_full_rebuild_on_every_delta(mode):
+    """An int8 snapshot cannot be patched: an insert burst that a bf16
+    snapshot would take as a delta makes the int8 executor requantize by
+    a full rebuild, and the fresh inserts are visible either way (the
+    JAX package's refresh-policy tests, for the port)."""
+    ds = jds.clustered(4000, 16, n_clusters=16, seed=0)
+    q = jds.queries_near(ds, 6, seed=10)
+    for dtype, want_delta in (("bf16", True), ("int8", False)):
+        idx = QuakeIndex.build(ds.vectors[:2000], num_partitions=16,
+                               kmeans_iters=3, device="cpu")
+        ex = mq.get_executor(idx, dtype)
+        assert ex is mq.get_executor(idx, dtype)
+        assert ex is not mq.get_executor(idx)
+        ex.search(q, 5, **mode)
+        assert ex.full_rebuilds == 1
+        new_ids = np.arange(8000, 8006)
+        idx.insert(q * 0.999, new_ids)
+        r = ex.search(q, 5, **mode)
+        if want_delta:
+            assert (ex.delta_refreshes, ex.full_rebuilds) == (1, 1)
+        else:
+            assert (ex.delta_refreshes, ex.full_rebuilds) == (0, 2)
+        assert set(r.ids.ravel().tolist()) & set(new_ids.tolist())
+        miss = ~np.isfinite(r.dists)
+        assert (r.ids[miss] == -1).all() and (r.ids[~miss] >= 0).all()
+
+
+def test_int8_rerank_mirror_and_partition_padding():
+    """The compact re-rank mirror returns what a gather from the padded
+    f32 snapshot returns; the snapshot holds the index's partitions
+    unpadded, and the padding slots past each partition's size are
+    inert (not valid, and a -1 candidate re-ranks to inf)."""
+    ds = jds.clustered(3000, 16, n_clusters=16, seed=4)
+    q = jds.queries_near(ds, 16, seed=5)
+    idx = QuakeIndex.build(ds.vectors, num_partitions=20, kmeans_iters=3,
+                           device="cpu")
+    ex = mq.BatchedSearchExecutor(idx, storage_dtype="int8")
+    r = ex.search(q, 10, nprobe=5)
+    assert ex._snap.num_partitions == idx.num_partitions == 20
+    sizes = idx.levels[0].sizes()
+    np.testing.assert_array_equal(ex._valid.numpy().sum(axis=1), sizes)
+    assert not ex._valid[:, int(sizes.max()):].any()
+    flat = np.where(ex._valid.numpy().reshape(-1))[0][::7][:40]
+    flat = np.concatenate([flat, [-1]])[None, :].repeat(2, axis=0)
+    full = mq.IndexSnapshot.from_index(idx, capacity=ex._snap.capacity)
+    x = full.data.numpy().reshape(-1, idx.dim)
+    d, f = ex._rerank_exact(q[:2], flat, 41)
+    diff = x[np.maximum(f, 0)] - q[:2, None]        # the JAX formula
+    de = np.einsum("bkd,bkd->bk", diff, diff, dtype=np.float64)
+    np.testing.assert_array_equal(d[:, :40], de[:, :40])
+    assert (f[:, 40] == -1).all() and np.isinf(d[:, 40]).all()
+    r32 = mq.get_executor(idx).search(q, 10, nprobe=5)
+    assert np.mean(r.ids == r32.ids) >= 0.95
+    # without the re-rank the int8 distances are served as they are
+    raw = mq.BatchedSearchExecutor(idx, storage_dtype="int8",
+                                   int8_rerank=False)
+    r_raw = raw.search(q, 10, nprobe=5)
+    assert raw._mirror is None
+    assert np.mean([len(set(a) & set(b)) / 10
+                    for a, b in zip(r_raw.ids, r32.ids)]) >= 0.85
+    assert not np.array_equal(r_raw.dists, r.dists)
