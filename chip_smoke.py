@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--n 1000000] [--batch 1024] [--seed 0]
                           [--wiki-n 1000000] [--months 12]
 
-With no arguments it runs three paths, each with the kernels' launch
+With no arguments it runs four paths, each with the kernels' launch
 counts set to 0 just before it and read just after:
 
 1. The main path, the SIFT1M-shaped cell: 1,000,000 clustered synthetic
@@ -29,6 +29,19 @@ counts set to 0 just before it and read just after:
    the exact ground truth.  Each month also reports the pass that the
    single-query latency model would make on the same statistics, rolled
    back after it.
+4. LM serving (``LM_CONFIG``, qwen2.5-14b), after the
+   Quake paths' tensors are freed.  First exact f32 checks at full width
+   and two layers: prefill logits with the flash kernel against the
+   plain attention, and decode at position t against a re-prefill over
+   t + 1 tokens.  Then the served model at full width and depth in bf16
+   from seeded random weights: ``prefill`` of 4 prompts of 4,096 seeded
+   tokens, 32 greedy ``decode_step``s into a cache padded to 4,096 + 32,
+   gates of 48 flash launches per prefill and none per decode step, the
+   flash kernel's share of a warm prefill's device time, and decode step
+   8 against a re-prefill of the prompts and their first 8 tokens
+   (printed, ungated).  The kernel is held against its plain version at
+   layers 0 and 47's operands and the JAX tests' f32 shapes, and timed
+   at one request of ``LM_TIME_LEN`` tokens (prefill_32k's).
 
 It then holds each CUDA kernel against its plain PyTorch version at the
 shapes the paths gave it, times both and a one-library-call yardstick,
@@ -42,6 +55,7 @@ port is not beside it, and on any failed check.  Detailed records go to
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -62,6 +76,22 @@ BF16_RECALL = 0.8             # bf16 vs f32 id overlap (the JAX tests' bar)
 APS_RECALL_MIN = 0.85         # recall@100 of the APS path at target 0.9
 INT8_OVERLAP = 0.85           # int8 vs f32 id overlap (the JAX tests' bar)
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 (the bound of the q8 scan)
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 (the bound of attention)
+# flash kernel vs its plain version, per entry: f32 within
+# FLASH_F32_TOL * |o| + FLASH_F32_TOL (tests/test_kernels.py's bound for
+# the TPU kernel); bf16 within one bf16 ulp of the output, 2^-7 * |o|, plus
+# 1e-3 (a score that differs in its last f32 bit can round p the other way)
+FLASH_F32_TOL = 2e-5
+FLASH_BF16_REL, FLASH_BF16_ABS = 2.0 ** -7, 1e-3
+# f32 LM logits (kernel vs plain attention, decode vs re-prefill): within
+# LM_TOL * |x| + LM_TOL (tests/test_kernels.py's prefill bound)
+LM_TOL = 1e-4
+# the LM path: a config of repro_torch.configs.lm_archs at its full width
+# and depth; prompts x tokens, greedy decode steps; the tokens of the one
+# request at which the kernel is timed (prefill_32k's request)
+LM_CONFIG = "qwen25_14b"
+LM_PROMPTS, LM_PROMPT_LEN, LM_DECODE = 4, 4096, 32
+LM_TIME_LEN = 32768
 
 
 def fail(msg: str) -> None:
@@ -175,9 +205,11 @@ def compare_topk(name, d_k, i_k, d_p, i_p):
     return err, float(tol.max()) if tol.numel() else 0.0
 
 
-def profile_search(fn) -> dict:
-    """Device busy time of one call of ``fn`` under torch.profiler, beside
-    its wall time, and the kernels that took the most device time."""
+def profile_call(fn, what: str = "search_batch",
+                   match: str = "") -> dict:
+    """Device busy time of one warm call of ``fn`` under torch.profiler,
+    beside its wall time, the kernels that took the most device time, and
+    the device time of the kernels whose name holds ``match``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -195,13 +227,16 @@ def profile_search(fn) -> dict:
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    prof.export_chrome_trace(str(OUT_DIR / "search_batch_trace.json"))
+    prof.export_chrome_trace(str(OUT_DIR / f"{what}_trace.json"))
     out = {"wall_ms_profiled": wall_ms,
            "device_busy_ms": busy_ms if rows else None,
            "idle_share": 1.0 - busy_ms / wall_ms if rows else None,
            "top": [{"name": k[:80], "calls": c, "device_ms": ms}
                    for ms, c, k in rows[:12]]}
-    print(f"profile of one warm search_batch: wall {wall_ms:.1f} ms, "
+    if match:
+        out["match_ms"] = sum(r[0] for r in rows if match in r[2]) \
+            if rows else None
+    print(f"profile of one warm {what}: wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms" if rows else
           "profile: the profiler saw no device time (not measured)")
     for r in out["top"]:
@@ -259,6 +294,7 @@ def main() -> int:
                                       get_executor, plan_batch)
         from repro_torch.data import datasets
         from repro_torch.kernels import build, ops, ref
+        from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import kmeans_assign as ka
         from repro_torch.kernels import scan_topk as st
         from repro_torch.kernels import scan_topk_indexed as sti
@@ -293,7 +329,8 @@ def main() -> int:
     steps, step_launches = {}, {}
     counters = {"scan_topk_indexed": sti.LAUNCHES, "scan_topk": st.LAUNCHES,
                 "kmeans_assign": ka.LAUNCHES,
-                "scan_topk_indexed_q8": sti.LAUNCHES_Q8}
+                "scan_topk_indexed_q8": sti.LAUNCHES_Q8,
+                "flash_attention": fa.LAUNCHES}
     path_launches = {}
 
     def start_path():
@@ -666,13 +703,22 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- where the time of one warm search_batch goes ------------------
-    record["profile"] = profile_search(
+    record["profile"] = profile_call(
         lambda: idx.search_batch(q, args.k, recall_target=0.9))
     del idx, ex, ex8, snap, snap8, valid, plan, sel, qmask, ds, all_x
     torch.cuda.empty_cache()
 
     # ---- path 3: the dynamic loop (paper Fig. 4) ------------------------
     record["dynamic"] = run_dynamic(args, dev, start_path, end_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- path 4: LM serving (prefill -> decode) ---------------------------
+    t = time.perf_counter()
+    record["lm"], row = run_lm(args, dev, start_path, end_path)
+    record["lm"]["path_s"] = time.perf_counter() - t
+    print(f"lm path took {record['lm']['path_s']:.1f} s")
+    kernels.append(row)
     record.update(kernels=kernels, card=card, path_launches=path_launches,
                   total_s=time.perf_counter() - t_start)
     (OUT_DIR / "record.json").write_text(json.dumps(record, indent=1))
@@ -870,6 +916,286 @@ def run_dynamic(args, dev, start_path, end_path) -> dict:
                                            "scan_topk_indexed",
                                            "scan_topk_indexed_q8"))
     return out
+
+
+def check_close(name, got, ref, rel, abs_):
+    """Fail unless every entry of ``got`` is within ``rel * |ref| + abs_``
+    of ``ref`` (and finite); returns the largest |diff|."""
+    import torch
+    got, ref = got.double(), ref.double()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: non-finite values")
+    diff = (got - ref).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    over = diff > rel * ref.abs() + abs_
+    if bool(over.any()):
+        fail(f"{name}: {int(over.sum())} of {diff.numel()} entries beyond "
+             f"{rel:g}*|x| + {abs_:g}, max |diff| {err:.3g}")
+    print(f"{name}: max |diff| {err:.3g} (bound {rel:g}*|x| + {abs_:g})")
+    return err
+
+
+def flash_bound(b, sq, sk, h, kh, d, causal, elem):
+    """(bound_ms, bound_by) of one attention call: q, k, v read and the
+    output written once; 4 d operations per live (query, key) pair and
+    head, at the bf16 tensor-core rate."""
+    if causal:   # query i sees keys 0..min(i, sk - 1)
+        m = min(sq, sk)
+        pairs = m * (m + 1) // 2 + (sq - m) * sk
+    else:
+        pairs = sq * sk
+    nbytes = (2 * b * sq * h * d + 2 * b * sk * kh * d) * elem
+    return bound(nbytes, 4.0 * b * h * d * pairs, BF16_FLOPS_PER_S)
+
+
+def run_lm(args, dev, start_path, end_path):
+    """The LM serving path: exact f32 checks at full width and two layers
+    (kernel against plain attention, decode against re-prefill), then the
+    served model at full width and depth in bf16 (prefill of the prompts,
+    greedy decode, launch gates, a re-prefill check, the flash kernel's
+    share of a warm prefill), then the kernel against its plain version
+    at the captured and the JAX tests' shapes, and its time at one
+    LM_TIME_LEN-token request.  Returns (record, kernels-line row)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.nn import functional as F
+    from repro_torch.configs import lm_archs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Transformer, param_count
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    base = getattr(lm_archs, LM_CONFIG)()
+    h, kh, dh, vocab = (base.n_heads, base.n_kv_heads, base.head_dim,
+                        base.vocab_size)
+
+    def plain_attention(q, k, v, *, causal, q_block, k_block):
+        return fa.flash_attention_plain(q, k, v, causal=causal,
+                                        q_block=fa.Q_BLOCK,
+                                        k_block=fa.K_BLOCK)
+
+    # -- exact f32 checks: full width, two layers -------------------------
+    cfg32 = dataclasses.replace(base, n_layers=2, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    m32 = Transformer(cfg32, device=dev, generator=g)
+    s32, steps32 = 512, 4
+    toks = torch.randint(0, vocab, (2, s32 + steps32), generator=g,
+                         device=dev)
+    lg_k, (ck, cv) = m32.prefill(toks[:, :s32])
+    before = fa.LAUNCHES.count
+    lg_p, _ = m32.prefill(toks[:, :s32], attention=plain_attention)
+    if fa.LAUNCHES.count != before:
+        fail(f"lm f32 prefill with plain attention launched the flash "
+             f"kernel {fa.LAUNCHES.count - before} times")
+    errs = {"f32_prefill_kernel_vs_plain": check_close(
+        "lm f32 prefill logits, kernel vs plain attention", lg_k, lg_p,
+        LM_TOL, LM_TOL)}
+    pad = (0, 0, 0, 0, 0, steps32)
+    ck, cv = F.pad(ck, pad), F.pad(cv, pad)
+    for t in range(s32, s32 + steps32):
+        lg_d, (ck, cv) = m32.decode_step(
+            toks[:, t], ck, cv, torch.full((2,), t, device=dev))
+        lg_r, _ = m32.prefill(toks[:, :t + 1])
+        errs[f"f32_decode_vs_reprefill@{t}"] = check_close(
+            f"lm f32 decode at position {t} vs re-prefill", lg_d, lg_r,
+            LM_TOL, LM_TOL)
+    out["f32_checks"] = errs
+    del m32, ck, cv, lg_k, lg_p, lg_d, lg_r
+    torch.cuda.empty_cache()
+
+    # -- serving at full width and depth, bf16 ----------------------------
+    cfg = dataclasses.replace(base, param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16)
+    n_l, b, s, n_dec = cfg.n_layers, LM_PROMPTS, LM_PROMPT_LEN, LM_DECODE
+    start_path()
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model = Transformer(cfg, device=dev, generator=g)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 1e9
+    print(f"lm: {LM_CONFIG} at {n_l} layers, d_model {cfg.d_model}, "
+          f"{h}/{kh} heads of {dh}, bf16: {param_count(cfg)} parameters, "
+          f"{weight_gb:.2f} GB, built in {out['build_s']:.2f} s")
+    prompts = torch.randint(0, vocab, (b, s), generator=g, device=dev)
+    captured, calls = {}, [0]
+
+    def capture(q, k, v, **kw):
+        if calls[0] in (0, n_l - 1):
+            captured[calls[0]] = (q.clone(), k.clone(), v.clone())
+        calls[0] += 1
+        return fa.flash_attention(q, k, v, **kw)
+
+    before = fa.LAUNCHES.count
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, (ck, cv) = model.prefill(prompts, attention=capture)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t
+    prefill_launches = fa.LAUNCHES.count - before
+    if tuple(logits.shape) != (b, vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"lm prefill: logits of shape {tuple(logits.shape)} or not "
+             f"finite")
+    shape = (n_l, b, s + n_dec, kh, dh)
+    ckp = torch.zeros(shape, dtype=ck.dtype, device=dev)
+    cvp = torch.zeros(shape, dtype=cv.dtype, device=dev)
+    ckp[:, :, :s], cvp[:, :, :s] = ck, cv
+    del ck, cv
+    out["cache_gb"] = 2 * ckp.numel() * ckp.element_size() / 1e9
+    tok = logits.argmax(-1)
+    gen, step_ms, dec_launches = [tok], [], []
+    cache_len = torch.full((b,), s, device=dev)
+    for i in range(n_dec):
+        before = fa.LAUNCHES.count
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, _ = model.decode_step(tok, ckp, cvp, cache_len)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        dec_launches.append(fa.LAUNCHES.count - before)
+        if not bool(torch.isfinite(lg).all()):
+            fail(f"lm decode step {i + 1}: non-finite logits")
+        if i == 7:
+            lg8 = lg.clone()
+        tok = lg.argmax(-1)
+        gen.append(tok)
+        cache_len += 1
+    got = end_path("lm", ("flash_attention",))
+    warm = step_ms[2:] or step_ms
+    out.update(prefill_launches=prefill_launches,
+               decode_launches=dec_launches, decode_ms=step_ms,
+               decode_ms_mean=float(np.mean(warm)),
+               decode_ms_worst=float(np.max(warm)))
+    print(f"lm prefill of {b} x {s} tokens: {out['prefill_s']:.3f} s "
+          f"(first call), {prefill_launches} flash launches; decode "
+          f"{n_dec} steps: {out['decode_ms_mean']:.2f} ms a step (mean "
+          f"after 2 warm-up steps), worst {out['decode_ms_worst']:.2f} ms, "
+          f"flash launches per step {sorted(set(dec_launches))}")
+    if prefill_launches != n_l or got["flash_attention"] != n_l:
+        fail(f"lm: {prefill_launches} flash launches in the prefill, "
+             f"{got['flash_attention']} on the path, not {n_l}")
+    if any(dec_launches):
+        fail("lm: a decode step launched the flash kernel")
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model.prefill(prompts)
+    torch.cuda.synchronize()
+    out["prefill_warm_s"] = time.perf_counter() - t
+    out["prefill_tokens_per_s"] = b * s / out["prefill_warm_s"]
+    print(f"lm warm prefill: {out['prefill_warm_s']:.3f} s, "
+          f"{out['prefill_tokens_per_s']:.0f} tokens/s")
+    prof = profile_call(lambda: model.prefill(prompts), "prefill",
+                          "flash_fwd_kernel")
+    if prof["device_busy_ms"]:
+        prof["flash_share"] = prof["match_ms"] / prof["device_busy_ms"]
+        print(f"lm: the flash kernel takes {prof['match_ms']:.1f} ms of "
+              f"the warm prefill's {prof['device_busy_ms']:.1f} ms of "
+              f"device time ({prof['flash_share']:.1%})")
+    out["profile"] = prof
+
+    # one more step, rewriting the last position: where a step's time goes
+    out["decode_profile"] = profile_call(
+        lambda: model.decode_step(tok, ckp, cvp, cache_len - 1),
+        "decode_step")
+
+    if n_dec >= 8:   # decode step 8 against a prefill over prompt + g1..g8
+        lg_re, _ = model.prefill(torch.cat([prompts, torch.stack(gen[:8],
+                                                                 1)], 1))
+        out["reprefill_check"] = {
+            "cosine_min": float(F.cosine_similarity(lg_re, lg8, -1).min()),
+            "max_abs_diff": float((lg_re - lg8).abs().max()),
+            "top1_agree": float((lg_re.argmax(-1) == lg8.argmax(-1))
+                                .float().mean())}
+        print(f"lm bf16 decode step 8 vs re-prefill (ungated): "
+              f"{out['reprefill_check']}")
+    out["peak_gb_serving"] = torch.cuda.max_memory_allocated() / 1e9
+    del model, ckp, cvp
+    torch.cuda.empty_cache()
+
+    # -- the kernel against its plain version ------------------------------
+    errs = {}
+    for layer, (q, k, v) in sorted(captured.items()):
+        o_k = fa.flash_attention_cuda(q, k, v, causal=True)
+        o_p, plain_ms = timed(lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, q_block=fa.Q_BLOCK, k_block=fa.K_BLOCK))
+        errs[f"bf16_layer{layer}"] = check_close(
+            f"flash_attention bf16, layer {layer}'s operands", o_k, o_p,
+            FLASH_BF16_REL, FLASH_BF16_ABS)
+        if layer == 0:
+            layer0_plain_ms = plain_ms
+    q, k, v = captured[0]
+    ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True),
+                 reps=5, warmup=1)
+    views = [x.transpose(1, 2) for x in (q, k, v)]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        *views, is_causal=True, enable_gqa=True), reps=5, warmup=1)
+    bound_ms, bound_by = flash_bound(b, s, s, h, kh, dh, True, 2)
+    gs = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    for (bb, hh, kk, sq, sk, d, causal) in [
+            (2, 8, 1, 96, 96, 32, True), (1, 8, 2, 128, 128, 64, True),
+            (2, 4, 4, 100, 120, 32, False), (1, 6, 2, 64, 256, 16, True)]:
+        qs = torch.randn((bb, sq, hh, d), generator=gs, device=dev)
+        ks = torch.randn((bb, sk, kk, d), generator=gs, device=dev)
+        vs = torch.randn((bb, sk, kk, d), generator=gs, device=dev)
+        errs[f"f32_{bb}x{sq}x{sk}x{hh}/{kk}x{d}_{causal}"] = check_close(
+            f"flash_attention f32 {(bb, hh, kk, sq, sk, d, causal)}",
+            fa.flash_attention_cuda(qs, ks, vs, causal=causal),
+            fa.flash_attention_plain(qs, ks, vs, causal=causal,
+                                     q_block=fa.Q_BLOCK, k_block=fa.K_BLOCK),
+            FLASH_F32_TOL, FLASH_F32_TOL)
+    del captured, q, k, v, views
+    torch.cuda.empty_cache()
+
+    # -- one request at LM_TIME_LEN tokens, one layer ----------------------
+    n = LM_TIME_LEN
+    q = torch.randn((1, n, h, dh), generator=gs, device=dev).bfloat16()
+    k = torch.randn((1, n, kh, dh), generator=gs, device=dev).bfloat16()
+    v = torch.randn((1, n, kh, dh), generator=gs, device=dev).bfloat16()
+    long_ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True),
+                      reps=3, warmup=1)
+    o_k = fa.flash_attention_cuda(q, k, v, causal=True)
+    o_p, long_plain_ms = timed(lambda: fa.flash_attention_plain(
+        q, k, v, causal=True, q_block=fa.Q_BLOCK, k_block=fa.K_BLOCK))
+    long_err = check_close(f"flash_attention bf16 at 1 x {n} tokens", o_k,
+                           o_p, FLASH_BF16_REL, FLASH_BF16_ABS)
+    del o_k, o_p
+    views = [x.transpose(1, 2) for x in (q, k, v)]
+    long_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        *views, is_causal=True, enable_gqa=True), reps=3, warmup=1)
+    long_bound, long_by = flash_bound(1, n, n, h, kh, dh, True, 2)
+    long = {"shape": {"B": 1, "S": n, "H": h, "KH": kh, "D": dh},
+            "ms": long_ms, "plain_ms": long_plain_ms,
+            "library_ms": long_lib_ms, "bound_ms": long_bound,
+            "bound_by": long_by, "max_abs_err": long_err}
+    print(f"flash_attention: {ms:.3f} ms at {(b, s, h, kh, dh)} (plain "
+          f"{layer0_plain_ms:.1f}, library {lib_ms:.3f}, bound "
+          f"{bound_ms:.3f} ms by {bound_by}); {long_ms:.3f} ms at "
+          f"{(1, n, h, kh, dh)} (plain {long_plain_ms:.1f}, library "
+          f"{long_lib_ms:.3f}, bound {long_bound:.3f} ms)")
+    del q, k, v, views
+    torch.cuda.empty_cache()
+    out.update(checks=errs, at_time_len=long,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"lm path: peak device memory {out['peak_gb']:.2f} GB "
+          f"(serving {out['peak_gb_serving']:.2f} GB)")
+    row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:99",
+        "launches": got["flash_attention"],
+        "max_abs_err": max(errs[f"bf16_layer{i}"] for i in (0, n_l - 1)),
+        "tol": f"{FLASH_BF16_REL:g}*|o| + {FLASH_BF16_ABS:g}",
+        "ms": ms, "plain_ms": layer0_plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": lib_ms,
+        "library": "F.scaled_dot_product_attention(is_causal, enable_gqa)",
+        "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": dh},
+        "at_time_len": long}
+    return out, row
 
 
 if __name__ == "__main__":

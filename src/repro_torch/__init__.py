@@ -1,5 +1,6 @@
 """PyTorch port of Quake (adaptive partitioned vector search) for NVIDIA
-Hopper GPUs, beside the JAX package ``repro``.
+Hopper GPUs, beside the JAX package ``repro``; ``models`` also holds the
+repository's LM serving path (prefill and decode).
 
 The port imports torch, numpy and scipy only.  Its kernels are written by
 hand in CUDA C++ (``kernels/csrc``) and built with nvcc at first use;
@@ -13,3 +14,5 @@ import torch
 # the port does not depend on them).
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# bf16 matrix products accumulate in f32, as the JAX package's do
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -52,6 +52,11 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
         # xs, centroids, aux, out_a, out_d, N, C, d, stream
         "kmeans_assign": "pppppiiip",
     },
+    "flash_attention": {
+        # q, k, v, out, B, Sq, Sk, H, KH, D, q/k/v strides of (B, S, head)
+        # (9), causal, is_bf16, stream
+        "flash_attention": "pppp" + "i" * 17 + "p",
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

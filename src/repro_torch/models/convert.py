@@ -1,0 +1,86 @@
+"""Carry the JAX package's LM weights and config into the port.
+
+``params_from_jax`` takes the reference's layer-stacked parameter tree
+(``init_params``'s dict, leaves as numpy arrays or anything
+``np.asarray`` reads, leading axis L on the per-layer leaves) and returns
+a ``Transformer`` holding the same weights; ``config_from_jax`` builds
+the port's config from a dict of the reference config's fields
+(``dataclasses.asdict`` of it).  This is how a JAX checkpoint's weights
+reach the port, and how the parity tests give both packages one model.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from .transformer import MoEConfig, Transformer, TransformerConfig
+
+# the reference's mesh fields, attention switches and training's remat,
+# which the port drops, and the MoE fields that the port's MoEConfig keeps
+DROPPED_FIELDS = ("dp_axes", "tp_axis", "seq_shard_activations",
+                  "attn_impl", "attn_grouped", "remat")
+MOE_FIELDS = ("n_experts", "top_k", "d_ff", "n_shared")
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+_BLOCK_LEAVES = {"ln1": ("ln1",), "ln2": ("ln2",),
+                 "wq": ("attn", "wq"), "wk": ("attn", "wk"),
+                 "wv": ("attn", "wv"), "wo": ("attn", "wo"),
+                 "bq": ("attn", "bq"), "bk": ("attn", "bk"),
+                 "bv": ("attn", "bv"), "w_gate": ("mlp", "w_gate"),
+                 "w_up": ("mlp", "w_up"), "w_down": ("mlp", "w_down")}
+
+
+def _torch_dtype(x) -> torch.dtype:
+    """The torch dtype of a dtype given as a torch dtype, a numpy or JAX
+    scalar type, a numpy dtype or a name."""
+    if isinstance(x, torch.dtype):
+        return x
+    name = x if isinstance(x, str) else (getattr(x, "__name__", None)
+                                         or np.dtype(x).name)
+    return _DTYPES[name]
+
+
+def config_from_jax(fields: Dict[str, Any]) -> TransformerConfig:
+    """The port's config from the reference config's fields (its mesh
+    fields, attention switches, ``remat`` and MoE routing fields dropped,
+    dtypes made torch dtypes)."""
+    f = {k: v for k, v in fields.items() if k not in DROPPED_FIELDS}
+    moe = f.get("moe")
+    if moe is not None and not isinstance(moe, MoEConfig):
+        moe = moe if isinstance(moe, dict) else dataclasses.asdict(moe)
+        f["moe"] = MoEConfig(**{k: moe[k] for k in MOE_FIELDS if k in moe})
+    for k in ("param_dtype", "compute_dtype"):
+        if k in f:
+            f[k] = _torch_dtype(f[k])
+    return TransformerConfig(**f)
+
+
+def params_from_jax(params: Dict[str, Any], cfg: TransformerConfig,
+                    device="cuda", dtype: Optional[torch.dtype] = None
+                    ) -> Transformer:
+    """A ``Transformer`` on ``device`` holding ``params``' weights, stored
+    in ``dtype`` (``cfg.param_dtype`` by default)."""
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype)
+    model = Transformer(cfg, device=device, init=False)
+
+    def tensor(a):
+        # through f32: numpy has no bfloat16 that torch reads
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    state = {"embed": tensor(params["embed"]),
+             "ln_f": tensor(params["ln_f"]),
+             "lm_head": tensor(params["lm_head"])}
+    layer0 = model.blocks[0].named_parameters() if len(model.blocks) else ()
+    for name, _ in layer0:
+        leaf = params
+        for key in _BLOCK_LEAVES[name]:
+            leaf = leaf[key]
+        stacked = tensor(leaf)
+        for i in range(cfg.n_layers):
+            state[f"blocks.{i}.{name}"] = stacked[i]
+    model.load_state_dict(state)
+    return model

@@ -1,9 +1,11 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
 Every test here needs an NVIDIA GPU and skips without one.  The int8
-tests at the end hold the q8 kernel against its plain version and check
-that the int8 executor and a maintenance pass on a CUDA index launch
-their kernels.  The file
+tests hold the q8 kernel against its plain version and check that the
+int8 executor and a maintenance pass on a CUDA index launch their
+kernels; the flash-attention tests at the end hold that kernel against
+its plain version and check that ``Transformer.prefill`` on the card
+launches it once per layer.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine
 that has only PyTorch: from the repository root,
 
@@ -27,6 +29,7 @@ from repro_torch.core import multiquery as mq
 from repro_torch.core.convert import index_from_arrays, index_to_arrays
 from repro_torch.core.index import QuakeIndex
 from repro_torch.data import datasets
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kmeans_assign as ka
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import scan_topk as st
@@ -325,3 +328,99 @@ def test_maintenance_on_the_card_runs_its_kernels(dev):
     assert rep.merges >= 1 and ka.LAUNCHES.count > before[0]
     assert rep.cost_after <= rep.cost_before + 1e-6
     idx.check_invariants()
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the kernel, its operands, the LM prefill on the card
+# ---------------------------------------------------------------------------
+
+# kernel vs plain at the kernel's tiles: f32 to rtol = atol = 2e-5 (the
+# JAX kernel test's bound; the two sum the dot products in other orders);
+# bf16 to one bf16 ulp of the output, 2^-7 |o|, plus 1e-3 (a score that
+# differs in its last f32 bit can round p, or the output, the other way)
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-3)}
+
+
+def _flash_close(out, ref):
+    rtol, atol = FLASH_TOL[ref.dtype]
+    torch.cuda.synchronize()
+    o, r = out.float(), ref.float()
+    assert torch.isfinite(o).all()
+    bad = (o - r).abs() > atol + rtol * r.abs()
+    assert not bool(bad.any()), float((o - r).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("b,h,kh,sq,sk", [
+    (2, 8, 1, 100, 100),      # MQA, Sq not a tile multiple
+    (1, 6, 2, 70, 200),       # GQA, Sq < Sk (causal aligned at 0)
+    (2, 4, 4, 129, 33),       # MHA, Sq > Sk, one partial key tile
+])
+def test_flash_attention_matches_plain(dev, dtype, causal, d, b, h, kh, sq,
+                                       sk):
+    g = torch.Generator(device=dev).manual_seed(b + h + sq + d)
+    q = torch.randn((b, sq, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, sk, kh, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, sk, kh, d), generator=g, device=dev).to(dtype)
+    before = fa.LAUNCHES.count
+    out = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.LAUNCHES.count == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    _flash_close(out, fa.flash_attention_plain(
+        q, k, v, causal=causal, q_block=fa.Q_BLOCK, k_block=fa.K_BLOCK))
+
+
+def test_flash_attention_strided_views_and_bad_operands(dev):
+    """q, k and v read in place from one fused projection (strided heads);
+    operands the kernel does not take raise, and nothing launches."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn((2, 90, 12, 32), generator=g, device=dev)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    out = fa.flash_attention_cuda(q, k, v, causal=True)
+    _flash_close(out, fa.flash_attention_plain(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+        q_block=fa.Q_BLOCK, k_block=fa.K_BLOCK))
+    before = fa.LAUNCHES.count
+    bad = [
+        (q.half(), k.half(), v.half()),                  # f16
+        (q, k.bfloat16(), v),                            # mixed dtypes
+        (q.transpose(1, 3).contiguous().transpose(1, 3), k, v),  # last dim
+        (torch.zeros(2, 90, 8, 48, device=dev),
+         torch.zeros(2, 90, 2, 48, device=dev),
+         torch.zeros(2, 90, 2, 48, device=dev)),         # D = 48
+        (q[:, :, :6], k[:, :, :1].expand(2, 90, 4, 32), v),  # H % KH
+        (q, k.cpu(), v),                                 # another device
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            fa.flash_attention_cuda(*args, causal=True)
+    assert fa.LAUNCHES.count == before
+
+
+def test_transformer_on_the_card_launches_flash_once_per_layer(dev):
+    """A smoke config's prefill on the card: one flash launch per layer,
+    logits and caches as on the CPU (plain attention); decode launches no
+    flash kernel."""
+    from repro_torch.configs import lm_archs
+    from repro_torch.models import Transformer
+    cfg = lm_archs.qwen25_smoke()
+    gpu = Transformer(cfg, device=dev)
+    cpu = Transformer(cfg, device="cpu", init=False)
+    cpu.load_state_dict({n: t.cpu() for n, t in gpu.state_dict().items()})
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, 512, (2, 70)))
+    before = fa.LAUNCHES.count
+    lg, (ck, cv) = gpu.prefill(toks)
+    assert fa.LAUNCHES.count == before + cfg.n_layers
+    lc, (kc, vc) = cpu.prefill(toks)
+    for a, b_ in ((lg, lc), (ck, kc), (cv, vc)):
+        np.testing.assert_allclose(a.cpu().numpy(), b_.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    pad = lambda c: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 4))
+    ck, cv = pad(ck), pad(cv)
+    before = fa.LAUNCHES.count
+    lg2, _ = gpu.decode_step(lg.argmax(-1), ck, cv,
+                             torch.full((2,), 70, device=dev))
+    assert fa.LAUNCHES.count == before
+    assert torch.isfinite(lg2).all()
