@@ -938,14 +938,16 @@ def check_close(name, got, ref, rel, abs_):
 def flash_bound(b, sq, sk, h, kh, d, causal, elem):
     """(bound_ms, bound_by) of one attention call: q, k, v read and the
     output written once; 4 d operations per live (query, key) pair and
-    head, at the bf16 tensor-core rate."""
+    head, at the bf16 tensor-core rate (elem 2) or the f32 rate of the
+    CUDA cores (elem 4: the f32 kernel's contract rules out TF32)."""
     if causal:   # query i sees keys 0..min(i, sk - 1)
         m = min(sq, sk)
         pairs = m * (m + 1) // 2 + (sq - m) * sk
     else:
         pairs = sq * sk
     nbytes = (2 * b * sq * h * d + 2 * b * sk * kh * d) * elem
-    return bound(nbytes, 4.0 * b * h * d * pairs, BF16_FLOPS_PER_S)
+    return bound(nbytes, 4.0 * b * h * d * pairs,
+                 BF16_FLOPS_PER_S if elem == 2 else F32_FLOPS_PER_S)
 
 
 def run_lm(args, dev, start_path, end_path):
@@ -970,9 +972,9 @@ def run_lm(args, dev, start_path, end_path):
                         base.vocab_size)
 
     def plain_attention(q, k, v, *, causal, q_block, k_block):
+        qb, kb = fa.TILES[q.dtype]
         return fa.flash_attention_plain(q, k, v, causal=causal,
-                                        q_block=fa.Q_BLOCK,
-                                        k_block=fa.K_BLOCK)
+                                        q_block=qb, k_block=kb)
 
     # -- exact f32 checks: full width, two layers -------------------------
     cfg32 = dataclasses.replace(base, n_layers=2, param_dtype=torch.float32,
@@ -1090,7 +1092,7 @@ def run_lm(args, dev, start_path, end_path):
     print(f"lm warm prefill: {out['prefill_warm_s']:.3f} s, "
           f"{out['prefill_tokens_per_s']:.0f} tokens/s")
     prof = profile_call(lambda: model.prefill(prompts), "prefill",
-                          "flash_fwd_kernel")
+                          "flash_fwd_bf16_mma_kernel")
     if prof["device_busy_ms"]:
         prof["flash_share"] = prof["match_ms"] / prof["device_busy_ms"]
         print(f"lm: the flash kernel takes {prof['match_ms']:.1f} ms of "
@@ -1119,10 +1121,11 @@ def run_lm(args, dev, start_path, end_path):
 
     # -- the kernel against its plain version ------------------------------
     errs = {}
+    bq, bk = fa.TILES[torch.bfloat16]
     for layer, (q, k, v) in sorted(captured.items()):
         o_k = fa.flash_attention_cuda(q, k, v, causal=True)
         o_p, plain_ms = timed(lambda: fa.flash_attention_plain(
-            q, k, v, causal=True, q_block=fa.Q_BLOCK, k_block=fa.K_BLOCK))
+            q, k, v, causal=True, q_block=bq, k_block=bk))
         errs[f"bf16_layer{layer}"] = check_close(
             f"flash_attention bf16, layer {layer}'s operands", o_k, o_p,
             FLASH_BF16_REL, FLASH_BF16_ABS)
@@ -1136,6 +1139,7 @@ def run_lm(args, dev, start_path, end_path):
         *views, is_causal=True, enable_gqa=True), reps=5, warmup=1)
     bound_ms, bound_by = flash_bound(b, s, s, h, kh, dh, True, 2)
     gs = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    fq, fk = fa.TILES[torch.float32]
     for (bb, hh, kk, sq, sk, d, causal) in [
             (2, 8, 1, 96, 96, 32, True), (1, 8, 2, 128, 128, 64, True),
             (2, 4, 4, 100, 120, 32, False), (1, 6, 2, 64, 256, 16, True)]:
@@ -1146,9 +1150,20 @@ def run_lm(args, dev, start_path, end_path):
             f"flash_attention f32 {(bb, hh, kk, sq, sk, d, causal)}",
             fa.flash_attention_cuda(qs, ks, vs, causal=causal),
             fa.flash_attention_plain(qs, ks, vs, causal=causal,
-                                     q_block=fa.Q_BLOCK, k_block=fa.K_BLOCK),
+                                     q_block=fq, k_block=fk),
             FLASH_F32_TOL, FLASH_F32_TOL)
-    del captured, q, k, v, views
+    # the f32 kernel (CUDA cores) at the exact checks' served shape: one
+    # layer's operands of the f32 prefill, 2 x 512 tokens at full width
+    q32, k32, v32 = (torch.randn((2, 512, n, dh), generator=gs, device=dev)
+                     for n in (h, kh, kh))
+    f32_ms = cuda_ms(lambda: fa.flash_attention_cuda(q32, k32, v32,
+                                                     causal=True))
+    f32_bound, f32_by = flash_bound(2, 512, 512, h, kh, dh, True, 4)
+    f32_row = {"shape": {"B": 2, "S": 512, "H": h, "KH": kh, "D": dh},
+               "ms": f32_ms, "bound_ms": f32_bound, "bound_by": f32_by}
+    print(f"flash_attention f32 kernel: {f32_ms:.3f} ms at "
+          f"{(2, 512, h, kh, dh)} (bound {f32_bound:.3f} ms)")
+    del captured, q, k, v, views, q32, k32, v32
     torch.cuda.empty_cache()
 
     # -- one request at LM_TIME_LEN tokens, one layer ----------------------
@@ -1160,7 +1175,7 @@ def run_lm(args, dev, start_path, end_path):
                       reps=3, warmup=1)
     o_k = fa.flash_attention_cuda(q, k, v, causal=True)
     o_p, long_plain_ms = timed(lambda: fa.flash_attention_plain(
-        q, k, v, causal=True, q_block=fa.Q_BLOCK, k_block=fa.K_BLOCK))
+        q, k, v, causal=True, q_block=bq, k_block=bk))
     long_err = check_close(f"flash_attention bf16 at 1 x {n} tokens", o_k,
                            o_p, FLASH_BF16_REL, FLASH_BF16_ABS)
     del o_k, o_p
@@ -1194,7 +1209,7 @@ def run_lm(args, dev, start_path, end_path):
         "bound_by": bound_by, "library_ms": lib_ms,
         "library": "F.scaled_dot_product_attention(is_causal, enable_gqa)",
         "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": dh},
-        "at_time_len": long}
+        "at_time_len": long, "f32": f32_row}
     return out, row
 
 

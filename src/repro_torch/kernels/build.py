@@ -49,8 +49,9 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
         "scan_dense": "pppppppiiiiiiip",
     },
     "kmeans_assign": {
-        # xs, centroids, aux, out_a, out_d, N, C, d, stream
-        "kmeans_assign": "pppppiiip",
+        # xs, centroids, aux, out_a, out_d, part_a, part_d, N, C, d,
+        # tiles_per_split, stream
+        "kmeans_assign": "pppppppiiiip",
     },
     "flash_attention": {
         # q, k, v, out, B, Sq, Sk, H, KH, D, q/k/v strides of (B, S, head)

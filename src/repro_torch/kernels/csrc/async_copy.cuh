@@ -1,0 +1,36 @@
+// cp.async helpers shared by the kernels that stage tiles through shared
+// memory while the previous tile is computed (flash_attention.cu,
+// kmeans_assign.cu).
+#pragma once
+#include <stdint.h>
+
+namespace quake {
+
+// BYTES (4, 8 or 16) global -> shared at the shared address dst, or BYTES
+// zeros when !in (src is then not read).  16-byte copies bypass L1.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         bool in) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(in ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(dst), "l"(src), "n"(BYTES), "r"(in ? BYTES : 0));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+}  // namespace quake

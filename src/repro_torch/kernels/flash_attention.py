@@ -11,8 +11,9 @@ v's dtype before the PV product (which sums in f32), and the output is
 ``acc / max(l, 1e-20)`` in q's dtype.  Sq and Sk need not be multiples
 of any tile.
 
-``flash_attention`` launches the CUDA kernel (``csrc/flash_attention.cu``)
-for CUDA tensors and runs the plain version beside it for CPU tensors.
+``flash_attention`` launches the CUDA kernel (``csrc/flash_attention.cu``:
+bf16 on the tensor cores, f32 on the CUDA cores) for CUDA tensors and
+runs the plain version beside it for CPU tensors.
 """
 from __future__ import annotations
 
@@ -23,9 +24,10 @@ from . import build
 Tensor = torch.Tensor
 
 LAUNCHES = build.LaunchCounter("flash_attention")
-# the kernel's own tiles (BQ, BK in csrc/flash_attention.cu): hold the
-# kernel against the plain version at these
-Q_BLOCK, K_BLOCK = 64, 32
+# each dtype's kernel tiles (BQ, BK of its namespace in
+# csrc/flash_attention.cu): the key tiling decides where p is rounded, so
+# hold a kernel against the plain version at the tiles of its dtype
+TILES = {torch.float32: (64, 32), torch.bfloat16: (128, 64)}
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1.0e30
@@ -90,7 +92,10 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
                          causal: bool = True) -> Tensor:
     """Launch the CUDA kernel.  Raises on any operand it does not take:
     another device or dtype, a last dimension that is not contiguous, a
-    head width outside HEAD_DIMS, or shapes that disagree."""
+    head width outside HEAD_DIMS, or shapes that disagree; bf16 operands
+    also need 16-byte aligned rows (the kernel copies 16 bytes at a
+    time): a data pointer at a multiple of 16 bytes and strides that are
+    multiples of 8 elements."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("flash_attention_cuda needs CUDA tensors")
@@ -106,6 +111,11 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
             raise ValueError(f"{name}'s last dimension must be contiguous")
         if max(t.stride()) >= 2 ** 31:
             raise ValueError(f"{name}'s strides exceed 32 bits")
+        if t.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
+            raise ValueError(f"bf16 {name} needs a 16-byte aligned start "
+                             f"and strides that are multiples of 8, got "
+                             f"{t.stride()}")
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
     if k.shape != (b, sk, kh, d) or v.shape != k.shape or kh == 0 \

@@ -11,6 +11,7 @@ for CUDA tensors and runs the plain version beside it for CPU tensors.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -21,6 +22,8 @@ from .ref import MASK_DIST
 Tensor = torch.Tensor
 
 LAUNCHES = build.LaunchCounter("kmeans_assign")
+TILE = 128           # points, and centroids, per block tile (csrc TILE)
+BLOCKS_PER_SM = 4    # blocks in flight an SM that the centroid split aims at
 
 
 def kmeans_assign_plain(xs: Tensor, centroids: Tensor, aux: Tensor
@@ -33,6 +36,20 @@ def kmeans_assign_plain(xs: Tensor, centroids: Tensor, aux: Tensor
     assign = torch.where(hit, assign, -1).to(torch.int32)
     mind = torch.where(hit, mind, torch.full_like(mind, MASK_DIST))
     return assign, mind
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _tiles_per_split(n: int, c: int, dev: torch.device) -> Tuple[int, int]:
+    """(centroid tiles a block takes, splits): enough splits of the
+    centroid tiles that some BLOCKS_PER_SM blocks an SM are in flight."""
+    point_tiles, tiles = -(-n // TILE), -(-c // TILE)
+    want = -(-BLOCKS_PER_SM * _sm_count(dev) // point_tiles)
+    per = max(1, tiles // want)
+    return per, -(-tiles // per)
 
 
 def kmeans_assign_cuda(xs: Tensor, centroids: Tensor, aux: Tensor
@@ -54,14 +71,22 @@ def kmeans_assign_cuda(xs: Tensor, centroids: Tensor, aux: Tensor
         raise ValueError(f"shapes disagree: xs {tuple(xs.shape)}, "
                          f"centroids {tuple(centroids.shape)}, aux "
                          f"{tuple(aux.shape)}")
-    out_a = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    out_d = torch.full((n,), MASK_DIST, dtype=torch.float32, device=dev)
     if n == 0 or c == 0:
-        return out_a, out_d
+        return (torch.full((n,), -1, dtype=torch.int32, device=dev),
+                torch.full((n,), MASK_DIST, dtype=torch.float32, device=dev))
+    out_a = torch.empty((n,), dtype=torch.int32, device=dev)
+    out_d = torch.empty((n,), dtype=torch.float32, device=dev)
+    per, splits = _tiles_per_split(n, c, dev)
+    part_a = part_d = 0
+    if splits > 1:   # each split's (argmin, min), merged by a second kernel
+        # one buffer: part[1] holds the minima's f32 bits
+        part = torch.empty((2, splits, n), dtype=torch.int32, device=dev)
+        part_a, part_d = part[0].data_ptr(), part[1].data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = build.lib("kmeans_assign").kmeans_assign(
         xs.data_ptr(), centroids.data_ptr(), aux.data_ptr(),
-        out_a.data_ptr(), out_d.data_ptr(), n, c, d, stream)
+        out_a.data_ptr(), out_d.data_ptr(), part_a, part_d, n, c, d, per,
+        stream)
     build.check_launch(err, "kmeans_assign")
     LAUNCHES.add()
     return out_a, out_d

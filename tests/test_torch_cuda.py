@@ -159,6 +159,45 @@ def test_kmeans_assign_matches_plain_with_ties_and_masks(dev, n, c, d):
     assert (ak == ap).float().mean().item() > 0.99
 
 
+@pytest.mark.parametrize("n,c,d", [(10_000, 1000, 128), (333, 1001, 200),
+                                   (129, 257, 7)])
+def test_kmeans_assign_ties_across_tiles_and_splits(dev, monkeypatch, n, c,
+                                                    d):
+    """N and C off the 128 tiles; an exact tie between centroid 3 and
+    centroid c - 2 (another centroid tile, and another split whenever the
+    tiles are split) goes to 3, with one split and with one split a tile;
+    with every centroid masked every point gets -1 and MASK_DIST."""
+    rng = np.random.default_rng(n + c + d)
+    cs = torch.as_tensor(rng.normal(size=(c, d)).astype(np.float32),
+                         device=dev)
+    cs[3] = cs[c - 2]
+    xs = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32),
+                         device=dev)
+    xs[:7] = cs[3] + torch.as_tensor(
+        rng.normal(size=(7, d)).astype(np.float32) * 0.01, device=dev)
+    aux = (cs * cs).sum(1)
+    ap, mp = ka.kmeans_assign_plain(xs, cs, aux)
+    tiles = -(-c // ka.TILE)
+    runs = {}
+    for per in (None, 1, tiles):    # the wrapper's split, most, none
+        if per is not None:
+            monkeypatch.setattr(ka, "_tiles_per_split",
+                                lambda *_, p=per: (p, -(-tiles // p)))
+        runs[per] = ka.kmeans_assign(xs, cs, aux)
+    torch.cuda.synchronize()
+    ak, mk = runs[None]
+    assert (ak[:7] == 3).all() and (ap[:7] == 3).all()
+    assert (ak == ap).float().mean().item() > 0.99
+    np.testing.assert_allclose(mk.cpu().numpy(), mp.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    for a, m in runs.values():      # the split does not change the answer
+        assert torch.equal(a, ak) and torch.equal(m, mk)
+    masked = aux + ref.MASK_DIST
+    am, mm = ka.kmeans_assign(xs, cs, masked)
+    torch.cuda.synchronize()
+    assert (am == -1).all() and (mm == ref.MASK_DIST).all()
+
+
 def test_wrappers_raise_on_operands_the_kernels_do_not_take(dev):
     q = torch.zeros(2, 8, device=dev)
     data = torch.zeros(3, 16, 8, device=dev)
@@ -357,6 +396,7 @@ def _flash_close(out, ref):
     (2, 8, 1, 100, 100),      # MQA, Sq not a tile multiple
     (1, 6, 2, 70, 200),       # GQA, Sq < Sk (causal aligned at 0)
     (2, 4, 4, 129, 33),       # MHA, Sq > Sk, one partial key tile
+    (1, 4, 2, 300, 300),      # GQA, several key tiles across the diagonal
 ])
 def test_flash_attention_matches_plain(dev, dtype, causal, d, b, h, kh, sq,
                                        sk):
@@ -368,8 +408,9 @@ def test_flash_attention_matches_plain(dev, dtype, causal, d, b, h, kh, sq,
     out = fa.flash_attention(q, k, v, causal=causal)
     assert fa.LAUNCHES.count == before + 1
     assert out.shape == q.shape and out.dtype == dtype
+    qb, kb = fa.TILES[dtype]
     _flash_close(out, fa.flash_attention_plain(
-        q, k, v, causal=causal, q_block=fa.Q_BLOCK, k_block=fa.K_BLOCK))
+        q, k, v, causal=causal, q_block=qb, k_block=kb))
 
 
 def test_flash_attention_strided_views_and_bad_operands(dev):
@@ -379,9 +420,10 @@ def test_flash_attention_strided_views_and_bad_operands(dev):
     qkv = torch.randn((2, 90, 12, 32), generator=g, device=dev)
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
     out = fa.flash_attention_cuda(q, k, v, causal=True)
+    qb, kb = fa.TILES[torch.float32]
     _flash_close(out, fa.flash_attention_plain(
         q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
-        q_block=fa.Q_BLOCK, k_block=fa.K_BLOCK))
+        q_block=qb, k_block=kb))
     before = fa.LAUNCHES.count
     bad = [
         (q.half(), k.half(), v.half()),                  # f16
@@ -392,6 +434,33 @@ def test_flash_attention_strided_views_and_bad_operands(dev):
          torch.zeros(2, 90, 2, 48, device=dev)),         # D = 48
         (q[:, :, :6], k[:, :, :1].expand(2, 90, 4, 32), v),  # H % KH
         (q, k.cpu(), v),                                 # another device
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            fa.flash_attention_cuda(*args, causal=True)
+    assert fa.LAUNCHES.count == before
+
+
+def test_flash_attention_bf16_strided_views_and_row_alignment(dev):
+    """bf16 q, k and v read in place from one fused projection, against
+    the plain version at the bf16 tiles.  The kernel copies rows 16 bytes
+    at a time: a row stride that is not a multiple of 8 elements, or a
+    start off 16 bytes, raises, and nothing launches."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    qkv = torch.randn((2, 90, 12, 32), generator=g, device=dev).bfloat16()
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    out = fa.flash_attention_cuda(q, k, v, causal=True)
+    qb, kb = fa.TILES[torch.bfloat16]
+    _flash_close(out, fa.flash_attention_plain(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+        q_block=qb, k_block=kb))
+    before = fa.LAUNCHES.count
+    flat = torch.randn(2 * 90 * 260 + 8, generator=g, device=dev).bfloat16()
+    k, v = k.contiguous(), v.contiguous()
+    bad = [
+        (flat[:2 * 90 * 260].view(2, 90, 260)[..., :256].unflatten(
+            -1, (8, 32)), k, v),                         # row stride 260
+        (flat[4:4 + 2 * 90 * 256].view(2, 90, 8, 32), k, v),  # start + 8 B
     ]
     for args in bad:
         with pytest.raises(ValueError):

@@ -93,6 +93,31 @@ def test_flash_plain_matches_pallas_bf16():
                                atol=BF16_ATOL)
 
 
+@pytest.mark.parametrize("b,h,kh,sq,sk,d,causal", [
+    (1, 4, 2, 100, 100, 64, True),    # Sq < BQ, Sk not a multiple of BK
+    (1, 4, 2, 100, 150, 128, False),  # full, Sq < Sk
+    (2, 4, 1, 200, 200, 128, True),   # MQA, a ragged second query tile
+    (1, 2, 2, 150, 90, 64, False),    # MHA, Sq > Sk
+])
+def test_flash_plain_matches_pallas_at_bf16_kernel_tiles(b, h, kh, sq, sk, d,
+                                                         causal):
+    """bf16 at the tiles of the tensor-core kernel (TILES[bfloat16]),
+    where its plain version on the card rounds p."""
+    bq, bk = fa.TILES[torch.bfloat16]
+    rng = np.random.default_rng(b * 1000 + sq + sk + d)
+    q, k, v = (rng.normal(size=s).astype(np.float32)
+               for s in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d)))
+    ref = flash_attention_pallas(*(jnp.asarray(x, jnp.bfloat16)
+                                   for x in (q, k, v)),
+                                 causal=causal, q_block=bq, k_block=bk)
+    out = fa.flash_attention_plain(*(_t(x).bfloat16() for x in (q, k, v)),
+                                   causal=causal, q_block=bq, k_block=bk)
+    assert out.shape == (b, sq, h, d) and out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
 def test_flash_dispatch_on_cpu_takes_the_plain_version():
     rng = np.random.default_rng(3)
     q = _t(rng.normal(size=(1, 20, 4, 16)).astype(np.float32))
