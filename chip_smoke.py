@@ -155,6 +155,17 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls enqueued while a
+    spin kernel holds the card (the port's ``cost_model._device_ms``), so
+    the CUDA events bracket the card's work and not the wrapper's host
+    dispatch, which ``cuda_ms`` also pays once a kernel is shorter."""
+    import torch
+    from repro_torch.core.cost_model import _device_ms
+    fn()
+    return _device_ms(fn, reps, torch.device("cuda")) / reps
+
+
 def recall_at(ids, gt) -> float:
     import numpy as np
     k = gt.shape[1]
@@ -232,7 +243,9 @@ def profile_call(fn, what: str = "search_batch",
            "device_busy_ms": busy_ms if rows else None,
            "idle_share": 1.0 - busy_ms / wall_ms if rows else None,
            "top": [{"name": k[:80], "calls": c, "device_ms": ms}
-                   for ms, c, k in rows[:12]]}
+                   for ms, c, k in rows[:12]],
+           "port_kernels": [{"name": k[:80], "calls": c, "device_ms": ms}
+                            for ms, c, k in rows if "quake::" in k]}
     if match:
         out["match_ms"] = sum(r[0] for r in rows if match in r[2]) \
             if rows else None
@@ -241,6 +254,10 @@ def profile_call(fn, what: str = "search_batch",
           "profile: the profiler saw no device time (not measured)")
     for r in out["top"]:
         print(f"  {r['device_ms']:8.3f} ms {r['calls']:5d}x {r['name']}")
+    for r in out["port_kernels"]:
+        if r not in out["top"]:
+            print(f"  {r['device_ms']:8.3f} ms {r['calls']:5d}x {r['name']}"
+                  f" (the port's)")
     return out
 
 
@@ -278,6 +295,32 @@ def bound(nbytes: float, ops: float, ops_per_s: float):
     t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def worklist(sti, qmask, sel_l, nrows) -> dict:
+    """The grouped driver's work list at one plan: the grouping kernel
+    held against its plain version (exactly), then the (query, union
+    slot) pairs, the tiles of up to QT queries, the mean queries a tile,
+    the rows the kernel reads (each tile reads its partition's live rows)
+    against ``rows_read`` (each selected partition's live rows once), and
+    their ratio, the times a partition is read on average."""
+    import torch
+    order = sti.slot_order(sel_l.to(torch.int32), nrows, len(sel_l))
+    want = sti.group_queries_plain(qmask, order)
+    got = sti.group_queries_cuda(qmask, order)
+    for name, t in want.items():
+        if not torch.equal(got[name], t):
+            fail(f"group_queries: the kernel's {name} differs from the "
+                 f"plain version's")
+    ntiles = want["ntiles"].long()
+    pairs = int(want["qcount"].sum())
+    tiles = int(ntiles.sum())
+    kernel_rows = int((ntiles * nrows[sel_l].long()).sum())
+    rows_read = int(nrows[torch.unique(sel_l)].sum())
+    return {"pairs": pairs, "tiles": tiles,
+            "queries_per_tile": pairs / max(tiles, 1),
+            "kernel_rows": kernel_rows, "rows_read": rows_read,
+            "reads_per_partition": kernel_rows / max(rows_read, 1)}
 
 
 def main() -> int:
@@ -502,6 +545,19 @@ def main() -> int:
     q_dev = torch.as_tensor(q, device=dev)
     b, d = q.shape
     u = int(sel.shape[0])
+    # the second timed plan: nprobe=32, rounds=1 (many queries a slot)
+    plan32 = plan_batch(idx, q, args.k, nprobe=32)
+    sel32 = plan32.sel_dev.to(torch.int32).contiguous()
+    qmask32 = plan32.qmask_dev.contiguous()
+    work = {"aps": worklist(sti, qmask, sel_l, nrows),
+            "nprobe32": worklist(sti, qmask32, sel32.long(), nrows)}
+    for name, w in work.items():
+        print(f"work list at the {name} plan: {w['pairs']} (query, slot) "
+              f"pairs in {w['tiles']} tiles, {w['queries_per_tile']:.2f} "
+              f"queries a tile; the kernel reads {w['kernel_rows']} rows "
+              f"for rows_read {w['rows_read']} "
+              f"({w['reads_per_partition']:.3f} reads a partition)")
+    n_chk = 64          # queries of the nprobe=32 plan held against plain
 
     def library_scan(gather, valid_t, metric, kp):
         """torch.topk over a torch.matmul on the gathered union rows."""
@@ -546,6 +602,22 @@ def main() -> int:
                 if ov < BF16_RECALL:
                     fail(f"bf16 {metric} overlap with f32 {ov:.3f}")
             ms = cuda_ms(kern)
+            dev_ms = device_ms(kern)
+            if (dtype_name, metric) == ("f32", "l2"):
+                record["profile_scan_topk_indexed"] = profile_call(
+                    kern, "scan_topk_indexed")
+
+            def kern32(nq=b):
+                return sti.scan_topk_indexed_cuda(
+                    qc[:nq], data_t, valid, sel32, qmask32[:nq], k_pad=k_pad,
+                    metric=metric)
+            dk32, ik32 = kern32(n_chk)
+            compare_topk(f"scan_topk_indexed {dtype_name} {metric} at "
+                         f"nprobe=32 (first {n_chk} queries)", dk32, ik32,
+                         *sti.scan_topk_indexed_plain(
+                             qc[:n_chk], data_t, valid, sel32,
+                             qmask32[:n_chk], k_pad=k_pad, metric=metric))
+            ms32, dev_ms32 = cuda_ms(kern32), device_ms(kern32)
             lib_ms = timed(lambda: library_scan(
                 lambda: data_t.index_select(0, sel_l).float(), valid,
                 metric, k_pad))[1]
@@ -561,13 +633,21 @@ def main() -> int:
                 "replaces": "src/repro/kernels/scan_topk_indexed.py:85",
                 "launches": launches["scan_topk_indexed"],
                 "max_abs_err": err, "tol": tol, "ms": ms,
+                "device_ms": dev_ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib_ms,
                 "shape": {"B": b, "U": u, "S": int(data_t.shape[1]),
                           "d": d, "k_pad": k_pad,
-                          "active_pair_rows": active_rows}})
+                          "active_pair_rows": active_rows},
+                "work_list": work["aps"],
+                "nprobe32": {"ms": ms32, "device_ms": dev_ms32,
+                             "U": int(sel32.shape[0]),
+                             "work_list": work["nprobe32"]}})
             print(f"scan_topk_indexed {dtype_name} {metric}: err {err:.3g}"
-                  f" (tol {tol:.3g}), {ms:.3f} ms vs plain {plain_ms:.1f} ms")
+                  f" (tol {tol:.3g}), {ms:.4f} ms ({dev_ms:.4f} device "
+                  f"time) vs plain {plain_ms:.1f} ms, bound "
+                  f"{bound_ms:.4f} ms; {ms32:.4f} ms ({dev_ms32:.4f}) at "
+                  f"nprobe=32")
     del bf16_snap
 
     # the int8 scan at the same plan, k_scan = 2k (the re-rank's list)
@@ -602,6 +682,32 @@ def main() -> int:
         err, tol = compare_topk(f"scan_topk_indexed_q8 {metric}", dk, ik,
                                 dp, ip_)
         ms = cuda_ms(kern)
+        dev_ms = device_ms(kern)
+        if metric == "l2":
+            record["profile_scan_topk_indexed_q8"] = profile_call(
+                kern, "scan_topk_indexed_q8")
+        ops32 = ref.q8_scan_operands(q_dev, snap8.data, snap8.scales,
+                                     ex8._valid, sel32, metric,
+                                     snap8.centroids)
+        args32 = (*ops32[:2], snap8.data, snap8.scales, *ops32[2:],
+                  ex8._valid, sel32, qmask32)
+
+        def kern32(nq=b):
+            a = args32
+            return sti.scan_topk_indexed_q8_cuda(
+                a[0][:nq], a[1][:nq], *a[2:5], a[5][:nq], a[6], a[7],
+                a[8][:nq], k_pad=kp8, metric=metric)
+        dk32, ik32 = kern32(n_chk)
+        a = args32
+        dp32, ip32 = sti.scan_topk_indexed_q8_plain(
+            a[0][:n_chk], a[1][:n_chk], *a[2:5], a[5][:n_chk], a[6], a[7],
+            a[8][:n_chk], k_pad=kp8, metric=metric)
+        compare_topk(f"scan_topk_indexed_q8 {metric} at nprobe=32 (first "
+                     f"{n_chk} queries)", dk32, ik32, dp32, ip32)
+        if not torch.equal(dk32, dp32):
+            fail(f"scan_topk_indexed_q8 {metric} at nprobe=32: distances "
+                 f"not bit-equal to the plain version's")
+        ms32, dev_ms32 = cuda_ms(kern32), device_ms(kern32)
         lib_ms = timed(lambda: library_scan(dequantized, ex8._valid, metric,
                                             kp8))[1]
         bound_ms, bound_by = bound(
@@ -614,16 +720,27 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/scan_topk_indexed_q8.cu",
             "replaces": "src/repro/kernels/scan_topk_indexed.py:210",
             "launches": path_launches["int8"]["scan_topk_indexed_q8"],
-            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "tol": tol, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms,
             "library": "gather + dequantize, torch.matmul, torch.topk",
             "shape": {"B": b, "U": u, "S": int(snap8.capacity), "d": d,
                       "k_pad": kp8, "active_pair_rows": active8,
-                      "rows_read": rows8}})
+                      "rows_read": rows8},
+            "work_list": worklist(sti, qmask, sel_l, nrows8),
+            "nprobe32": {"ms": ms32, "device_ms": dev_ms32,
+                         "U": int(sel32.shape[0]),
+                         "work_list": worklist(sti, qmask32, sel32.long(),
+                                               nrows8)}})
         print(f"scan_topk_indexed_q8 {metric}: err {err:.3g} (tol "
-              f"{tol:.3g}), {ms:.3f} ms vs plain {plain_ms:.1f} ms, "
-              f"library {lib_ms:.1f} ms, bound {bound_ms:.4f} ms")
+              f"{tol:.3g}), {ms:.4f} ms ({dev_ms:.4f} device time) vs "
+              f"plain {plain_ms:.1f} ms, library {lib_ms:.1f} ms, bound "
+              f"{bound_ms:.4f} ms; {ms32:.4f} ms ({dev_ms32:.4f}) at "
+              f"nprobe=32")
+        if err != 0.0:
+            fail(f"scan_topk_indexed_q8 {metric}: distances differ from "
+                 f"the plain version's by {err!r}, not 0")
         if metric == "l2":
             flat = ik[:, :2 * args.k].cpu().numpy()
             t = time.perf_counter()
@@ -641,10 +758,14 @@ def main() -> int:
     dp, ip_ = st.scan_topk_plain(q_dev, cents, k_pad=kp)
     err, tol = compare_topk("scan_topk", dk, ik, dp, ip_)
     ms = cuda_ms(lambda: st.scan_topk_cuda(q_dev, cents, k_pad=kp))
+    dev_ms = device_ms(lambda: st.scan_topk_cuda(q_dev, cents, k_pad=kp))
     plain_ms = cuda_ms(lambda: st.scan_topk_plain(q_dev, cents, k_pad=kp))
     c2 = (cents * cents).sum(1)
-    lib_ms = cuda_ms(lambda: torch.topk(
-        c2 - 2.0 * torch.matmul(q_dev, cents.T), kp, dim=1, largest=False))
+
+    def library():
+        return torch.topk(c2 - 2.0 * torch.matmul(q_dev, cents.T), kp,
+                          dim=1, largest=False)
+    lib_ms, lib_dev_ms = cuda_ms(library), device_ms(library)
     nc = cents.shape[0]
     bound_ms, bound_by = bound((b + nc) * d * 4 + 2 * b * kp * 4,
                                2.0 * b * nc * d, F32_FLOPS_PER_S)
@@ -653,10 +774,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/scan_topk.cu",
         "replaces": "src/repro/kernels/scan_topk.py:168",
         "launches": launches["scan_topk"], "max_abs_err": err, "tol": tol,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": lib_ms,
+        "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        "library_device_ms": lib_dev_ms,
         "shape": {"Q": b, "N": nc, "d": d, "k_pad": kp}})
-    print(f"scan_topk: err {err:.3g} (tol {tol:.3g}), {ms:.3f} ms")
+    print(f"scan_topk: err {err:.3g} (tol {tol:.3g}), {ms:.4f} ms "
+          f"({dev_ms:.4f} device time), library {lib_ms:.4f} ms "
+          f"({lib_dev_ms:.4f})")
 
     # assignment: an insert burst against the base centroids, and an
     # exact-tie case (a centroid duplicated at a smaller index)
@@ -686,8 +810,12 @@ def main() -> int:
             at[hit], at_p[hit]):
         fail("kmeans_assign: exact ties must go to the smallest index")
     ms = cuda_ms(lambda: ka.kmeans_assign_cuda(xs, cents, aux))
+    dev_ms = device_ms(lambda: ka.kmeans_assign_cuda(xs, cents, aux))
     plain_ms = cuda_ms(lambda: ka.kmeans_assign_plain(xs, cents, aux))
-    lib_ms = cuda_ms(lambda: torch.argmin(torch.cdist(xs, cents), dim=1))
+
+    def library():
+        return torch.argmin(torch.cdist(xs, cents), dim=1)
+    lib_ms, lib_dev_ms = cuda_ms(library), device_ms(library)
     n_x = xs.shape[0]
     bound_ms, bound_by = bound((n_x + nc) * d * 4 + n_x * 8,
                                2.0 * n_x * nc * d, F32_FLOPS_PER_S)
@@ -696,10 +824,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
         "replaces": "src/repro/kernels/kmeans_assign.py:67",
         "launches": launches["kmeans_assign"], "max_abs_err": err,
-        "tol": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": lib_ms,
+        "tol": tol, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        "library_device_ms": lib_dev_ms,
         "shape": {"N": n_x, "C": nc, "d": d, "tied_points": int(hit.sum())}})
-    print(f"kmeans_assign: err {err:.3g} (tol {tol:.3g}), {ms:.3f} ms")
+    print(f"kmeans_assign: err {err:.3g} (tol {tol:.3g}), {ms:.4f} ms "
+          f"({dev_ms:.4f} device time), library {lib_ms:.4f} ms "
+          f"({lib_dev_ms:.4f})")
     torch.cuda.synchronize()
 
     # ---- where the time of one warm search_batch goes ------------------
@@ -770,6 +901,7 @@ def run_dynamic(args, dev, start_path, end_path) -> dict:
     import torch
     from repro_torch.core import (Maintainer, QuakeConfig, QuakeIndex,
                                   get_executor, profile)
+    from repro_torch.core import kmeans
     from repro_torch.core.cost_model import paper_tau_ns
     from repro_torch.data.wikipedia import wikipedia_workload
     from repro_torch.data.workload import IncrementalGroundTruth
@@ -810,6 +942,23 @@ def run_dynamic(args, dev, start_path, end_path) -> dict:
     print(f"dynamic: {len(wl.initial_ids)} initial vectors, "
           f"{idx.num_partitions} partitions, built in {out['build_s']:.1f} "
           f"s")
+    # k-means on the card is reproducible: two builds of one sample at
+    # one seed give bit-equal centroids and the same assignments
+    sample = wl.initial_vectors[:100_000]
+    n_c = int(np.sqrt(len(sample)))
+    c1, a1 = kmeans.kmeans(sample, n_c, seed=args.seed, device=dev)
+    c2, a2 = kmeans.kmeans(sample, n_c, seed=args.seed, device=dev)
+    out["kmeans_repeat"] = {"points": len(sample), "clusters": n_c,
+                            "assignments_differ": int((a1 != a2).sum()),
+                            "centroid_max_diff": float(np.abs(c1 - c2).max())}
+    print(f"dynamic: two k-means builds of {len(sample)} vectors into "
+          f"{n_c} clusters at seed {args.seed}: "
+          f"{out['kmeans_repeat']['assignments_differ']} assignments "
+          f"differ, largest centroid |diff| "
+          f"{out['kmeans_repeat']['centroid_max_diff']!r}")
+    if out["kmeans_repeat"]["assignments_differ"] or \
+            out["kmeans_repeat"]["centroid_max_diff"]:
+        fail("k-means on the card is not reproducible")
     maint = Maintainer(idx, lam)
     gt = IncrementalGroundTruth(wl.dataset, wl.initial_ids, device=dev)
     ex8 = get_executor(idx, "int8")

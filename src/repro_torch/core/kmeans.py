@@ -3,12 +3,16 @@ nearest-centroid assignment.
 
 Lloyd iterations run on the index's device as a plain loop: one
 ``torch.matmul`` distance matrix per step (the JAX package leaves the same
-GEMM to XLA) and ``index_add_`` for the cluster sums.  Empty clusters are
-reseeded to the points currently farthest from their centroid, keeping
-all k clusters alive.  Seeding stays numpy with the same generator calls
-as the JAX package, so both draw the same initial centroids.  Every entry
-point takes the caller's ``device`` (the index's); like ``QuakeIndex`` it
-defaults to the card and raises without CUDA.
+GEMM to XLA) and a one-hot ``torch.matmul`` over fixed chunks of points for
+the cluster sums, so every run adds in the same order and a seed gives
+the same centroids, as the JAX package's ``segment_sum`` does
+(``index_add_`` on the card adds with atomics in no fixed order).  Empty
+clusters are reseeded to the points currently farthest from their
+centroid, keeping all k clusters alive.  Seeding stays numpy with the
+same generator calls as the JAX package, so both draw the same initial
+centroids.  Every entry point takes the caller's ``device`` (the
+index's); like ``QuakeIndex`` it defaults to the card and raises without
+CUDA.
 """
 from __future__ import annotations
 
@@ -23,20 +27,33 @@ from .device import resolve_device
 
 Tensor = torch.Tensor
 
+_ONEHOT_ELEMS = 1 << 24      # entries of one (k, chunk) one-hot block
+
+
+def _cluster_sums(xs: Tensor, assign: Tensor, k: int) -> Tensor:
+    """(k, d) sums of the points of each cluster, in a fixed order: one
+    one-hot product per chunk of points, the chunks added in turn."""
+    n = xs.shape[0]
+    chunk = max(1, _ONEHOT_ELEMS // k)
+    ids = torch.arange(k, device=xs.device)[:, None]
+    sums = torch.zeros((k, xs.shape[1]), dtype=xs.dtype, device=xs.device)
+    for s in range(0, n, chunk):
+        onehot = (assign[None, s:s + chunk] == ids).to(xs.dtype)
+        sums += onehot @ xs[s:s + chunk]
+    return sums
+
 
 def _lloyd(xs: Tensor, init_c: Tensor, k: int, iters: int
            ) -> Tuple[Tensor, Tensor]:
     """Lloyd iterations.  xs (N, d) points, init_c (k, d).  Returns
     (centroids, assign (N,) int32); ties go to the smaller centroid."""
-    ones = torch.ones(xs.shape[0], dtype=xs.dtype, device=xs.device)
     c = init_c
     for _ in range(iters):
         d = pairwise_l2_sq(xs, c)                              # (N, k)
         assign = torch.argmin(d, dim=1)
         mind = torch.gather(d, 1, assign[:, None])[:, 0]
-        sums = torch.zeros_like(c).index_add_(0, assign, xs)
-        cnts = torch.zeros(k, dtype=xs.dtype,
-                           device=xs.device).index_add_(0, assign, ones)
+        sums = _cluster_sums(xs, assign, k)
+        cnts = torch.bincount(assign, minlength=k).to(xs.dtype)
         new_c = torch.where(cnts[:, None] > 0,
                             sums / torch.clamp(cnts[:, None], min=1.0), c)
         # reseed empties to the currently worst-fit points

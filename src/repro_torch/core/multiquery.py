@@ -40,14 +40,13 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from ..kernels.ref import MASK_DIST, quantize_int8_residual
+from ..kernels.ref import MASK_DIST
 from . import aps as aps_mod
 from .index import QuakeIndex
 from .snapshot import IndexSnapshot
 
 STORAGE_DTYPES = ("f32", "bf16", "int8")
 U_BUCKET = 8        # union widths round up to a multiple of this
-Q8_PARTS = 64       # partitions quantized at once (bounds f32 temporaries)
 
 
 @dataclass
@@ -803,7 +802,8 @@ class BatchedSearchExecutor:
         if self._snap is not None:
             cap = max(cap, int(self._snap.capacity))
         self._snap = None        # drop the old tensors before the new ones
-        snap = IndexSnapshot.from_index(self.index, capacity=cap)
+        snap = IndexSnapshot.from_index(
+            self.index, capacity=cap, int8=self.storage_dtype == "int8")
         self._valid = snap.ids >= 0
         self._flat_ids = snap.ids.cpu().numpy().reshape(-1)
         self._sizes = snap.sizes.cpu().numpy()
@@ -817,7 +817,6 @@ class BatchedSearchExecutor:
                     + [np.zeros((0, self.index.dim), np.float32)])
                 self._mirror_base = np.concatenate(
                     [[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
-            snap = _quantize_snapshot(snap)
         self._snap = snap
         self.planner_cache.ensure_fresh()
         self._key = self._fingerprint()
@@ -1047,22 +1046,6 @@ class BatchedSearchExecutor:
             comparisons=stats["comparisons"],
             nprobe=nprobe, recall_estimate=r_est,
             rounds=n_rounds, round_trace=trace)
-
-
-def _quantize_snapshot(snap: IndexSnapshot) -> IndexSnapshot:
-    """The snapshot with its f32 rows replaced by IVF-residual int8 codes
-    and per-slot scales, quantized on the device ``Q8_PARTS`` partitions
-    at a time so the f32 temporaries stay small."""
-    data = snap.data
-    codes = torch.empty(data.shape, dtype=torch.int8, device=data.device)
-    scales = torch.empty(data.shape[:2], dtype=torch.float32,
-                         device=data.device)
-    for p0 in range(0, data.shape[0], Q8_PARTS):
-        c, sc = quantize_int8_residual(data[p0:p0 + Q8_PARTS],
-                                       snap.centroids[p0:p0 + Q8_PARTS])
-        codes[p0:p0 + Q8_PARTS] = c
-        scales[p0:p0 + Q8_PARTS] = sc
-    return replace(snap, data=codes, scales=scales)
 
 
 def get_executor(index: QuakeIndex,

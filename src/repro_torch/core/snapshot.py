@@ -17,9 +17,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels.ref import quantize_int8_residual
 from . import geometry
 
 Tensor = torch.Tensor
+
+Q8_PARTS = 64    # partitions an int8 snapshot pads and quantizes at once
 
 
 @dataclass
@@ -80,12 +83,16 @@ class IndexSnapshot:
 
     @staticmethod
     def from_index(index, capacity: Optional[int] = None,
-                   headroom: float = 1.0) -> "IndexSnapshot":
+                   headroom: float = 1.0,
+                   int8: bool = False) -> "IndexSnapshot":
         """Dense snapshot of the base level on the index's device.  Only
         the real rows cross to the device, in one copy, and are scattered
         into the zero-padded tensor there.  ``headroom`` pads the slot
         capacity beyond the largest partition; an explicit ``capacity``
-        below the largest partition raises."""
+        below the largest partition raises.  With ``int8`` the snapshot
+        holds IVF-residual int8 codes and per-slot scales, padded and
+        quantized ``Q8_PARTS`` partitions at a time, so no f32 copy of
+        the whole padded snapshot is ever on the device."""
         dev = index.device
         lvl0 = index.levels[0]
         p = lvl0.num_partitions
@@ -114,23 +121,47 @@ class IndexSnapshot:
             rows.append(j * s_cap + np.arange(s, dtype=np.int64))
             vecs.append(lvl0.vectors[j])
             exts.append(ext.astype(np.int32))
-        data = torch.zeros((p * s_cap, d), dtype=torch.float32, device=dev)
         ids = torch.full((p * s_cap,), -1, dtype=torch.int32, device=dev)
+        centroids = torch.as_tensor(
+            np.ascontiguousarray(lvl0.centroids, dtype=np.float32),
+            device=dev)
+        flat = x = None
         if rows:
             flat = torch.as_tensor(np.concatenate(rows), device=dev)
-            data.index_copy_(0, flat, torch.as_tensor(
-                np.concatenate(vecs).astype(np.float32), device=dev))
+            x = torch.as_tensor(np.concatenate(vecs).astype(np.float32),
+                                device=dev)
             ids.index_copy_(0, flat, torch.as_tensor(
                 np.concatenate(exts), device=dev))
+        scales = None
+        if not int8:
+            data = torch.zeros((p * s_cap, d), dtype=torch.float32,
+                               device=dev)
+            if rows:
+                data.index_copy_(0, flat, x)
+            data = data.reshape(p, s_cap, d)
+        else:
+            data = torch.empty((p, s_cap, d), dtype=torch.int8, device=dev)
+            scales = torch.empty((p, s_cap), dtype=torch.float32,
+                                 device=dev)
+            # rows are in partition order: partition j's are
+            # [start[j], start[j + 1]) of flat and x
+            start = np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)])
+            for p0 in range(0, p, Q8_PARTS):
+                p1 = min(p, p0 + Q8_PARTS)
+                block = torch.zeros(((p1 - p0) * s_cap, d),
+                                    dtype=torch.float32, device=dev)
+                lo, hi = int(start[p0]), int(start[p1])
+                if hi > lo:
+                    block.index_copy_(0, flat[lo:hi] - p0 * s_cap,
+                                      x[lo:hi])
+                data[p0:p1], scales[p0:p1] = quantize_int8_residual(
+                    block.reshape(p1 - p0, s_cap, d), centroids[p0:p1])
         table = geometry.betainc_table(
             d if index.config.metric == "l2" else d + 1)
         return IndexSnapshot(
-            data=data.reshape(p, s_cap, d), ids=ids.reshape(p, s_cap),
-            centroids=torch.as_tensor(
-                np.ascontiguousarray(lvl0.centroids, dtype=np.float32),
-                device=dev),
+            data=data, ids=ids.reshape(p, s_cap), centroids=centroids,
             sizes=torch.as_tensor(sizes, device=dev),
-            beta_table=torch.as_tensor(table, device=dev))
+            beta_table=torch.as_tensor(table, device=dev), scales=scales)
 
     @staticmethod
     def build_patch(index, rows, capacity: int) -> SnapshotPatch:

@@ -34,19 +34,27 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # "p" = pointer (ctypes.c_void_p), "i" = int (ctypes.c_int).
 SIGNATURES: Dict[str, Dict[str, str]] = {
     "scan_topk_indexed": {
-        # q, data, valid, nrows, sel, qmask, part_d, part_i, run_d, run_i,
-        # B, U, S, d, K, Uc, is_bf16, l2, stream
-        "scan_indexed": "ppppppppppiiiiiiiip",
+        # q, data, valid, nrows, sel, qmask, order, ws, part_d, part_i,
+        # gbuf, run_d, run_i, B, U, S, d, K, Uc, scratch_blocks, is_bf16,
+        # l2, stream
+        "scan_indexed": "ppppppppppppp" + "iiiiiiiii" + "p",
+        # qmask, order, ws, B, U, Uc, stream
+        "group_queries": "pppiiip",
+        # d, K, is_bf16
+        "scan_indexed_placement": "iii",
     },
     "scan_topk_indexed_q8": {
         # q_codes, q_scales, codes, scales, aux, qc, valid, nrows, sel,
-        # qmask, part_d, part_i, run_d, run_i, B, U, S, d, K, Uc, l2, stream
-        "scan_indexed_q8": "ppppppppppppppiiiiiiip",
+        # qmask, order, ws, part_d, part_i, gbuf, run_d, run_i, B, U, S, d,
+        # K, Uc, scratch_blocks, l2, stream
+        "scan_indexed_q8": "ppppppppppppppppp" + "iiiiiiii" + "p",
+        # d, K
+        "scan_indexed_q8_placement": "ii",
     },
     "scan_topk": {
-        # q, xs, valid, part_d, part_i, out_d, out_i,
-        # Q, N, d, R, K, is_bf16, l2, stream
-        "scan_dense": "pppppppiiiiiiip",
+        # q, xs, valid, part_d, part_i, gbuf, out_d, out_i,
+        # Q, N, d, R, K, scratch_blocks, is_bf16, l2, stream
+        "scan_dense": "pppppppp" + "iiiiiiii" + "p",
     },
     "kmeans_assign": {
         # xs, centroids, aux, out_a, out_d, part_a, part_d, N, C, d,

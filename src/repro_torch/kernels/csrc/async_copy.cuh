@@ -1,6 +1,6 @@
 // cp.async helpers shared by the kernels that stage tiles through shared
 // memory while the previous tile is computed (flash_attention.cu,
-// kmeans_assign.cu).
+// kmeans_assign.cu, scan_grouped.cuh).
 #pragma once
 #include <stdint.h>
 

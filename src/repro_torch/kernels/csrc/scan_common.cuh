@@ -1,5 +1,6 @@
-// Shared body of the scan kernels (scan_topk_indexed.cu, scan_topk.cu,
-// scan_topk_indexed_q8.cu).
+// Shared body of the scan kernels (scan_topk.cu, and the indexed scans
+// scan_topk_indexed.cu and scan_topk_indexed_q8.cu through the grouped
+// driver of scan_grouped.cuh).
 //
 // Each computes, for a set of queries over blocks of database rows, the
 // ascending top-K of a per-row distance, MASK_DIST on rows whose valid
@@ -10,20 +11,31 @@
 // distances keep the smaller index and the result does not depend on
 // block scheduling.
 //
-// Pass one (one block per (row block, tile of WARPS queries)): each warp
-// owns one query.  Rows are staged TILE_ROWS at a time in shared memory
-// by a row policy (FloatRows, or Q8Rows for int8 codes) whose row stride
-// is padded by one word, so lane r reading row r hits distinct banks;
-// lane r computes the distance of row r; candidates below the warp's
-// running K-th distance are appended to a per-warp buffer of BUF >= K + 32
-// entries, which is bitonic-sorted and cut back to K when it would
-// overflow.  Rows are visited in increasing index, so a candidate equal
-// to the K-th distance always loses the tie and strict "<" is exact.
-// Each (query, row block) writes its sorted K-list to scratch.
+// Top-K selection (WarpTopK): one warp keeps one query's candidates in a
+// buffer of BUF >= K + 32 entries.  Candidates below the running K-th
+// distance are appended, 32 at a time; when the buffer would overflow,
+// the filled prefix is bitonic-sorted and cut back to K.  Rows are
+// offered in increasing index, so a candidate equal to the K-th distance
+// always loses the tie and strict "<" is exact.  The buffer lives in
+// shared memory, or, for K past what a block's shared memory holds, in a
+// global scratch the wrapper allocates (slow, and large k is rare); the
+// code is the same, since a warp's __syncwarp orders its global accesses
+// too.  This is what lets every k_pad up to K_MAX = 16384 run on the
+// kernels.
 //
-// Pass two (one block per query): folds that query's K-lists into its
-// running K-list, each fold a bitonic merge of (running ascending ++ list
-// reversed).
+// Dense pass one (scan_rows, scan_topk.cu; one block per (row block,
+// tile of WARPS queries)): each warp owns one query.  Rows are staged
+// TILE_ROWS at a time in shared memory by a row policy (FloatRows) whose
+// row stride is padded by one word, so lane r reading row r hits
+// distinct banks; lane r computes the distance of row r.  Each (query,
+// row block) writes its sorted K-list to scratch.
+//
+// Pass two (merge_lists_kernel, one block per query): folds that query's
+// K-lists into its running K-list.  Each fold keeps the K smallest of
+// (running, list) as the elementwise minimum of the running list and the
+// reversed list, a bitonic sequence, and sorts it with log2(K) half-
+// cleaner stages, so it needs K entries of shared memory (128 KB at
+// K = 16384).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,6 +51,9 @@ constexpr int WARPS = 8;          // query slots per pass-one block
 constexpr int THREADS = WARPS * 32;
 constexpr int TILE_ROWS = 32;     // rows staged in shared memory per step
 constexpr int MERGE_THREADS = 128;
+constexpr int K_MAX = 16384;      // the largest K the merge pass takes
+constexpr int K_SMEM = 1024;      // dense scan: larger K keeps its buffers
+                                  // in global scratch
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) {
@@ -77,8 +92,53 @@ __device__ inline void warp_bitonic_sort(float* d, int* ix, int n,
   }
 }
 
+// The same sort for n of 256 and more (the indexed scans' buffers): a
+// lane loads four of its compare-exchanges of a stage before it compares
+// them, so their loads' latencies overlap instead of adding up.
+__device__ inline void warp_bitonic_sort_wide(float* d, int* ix, int n,
+                                              int lane) {
+  const int half = n >> 1;
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t0 = lane; t0 < half; t0 += 128) {
+        float di[4], dj[4];
+        int ii[4], ij[4], pi[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int t = t0 + 32 * u;
+          pi[u] = 2 * t - (t & (stride - 1));
+          if (t < half) {
+            di[u] = d[pi[u]];
+            dj[u] = d[pi[u] + stride];
+            ii[u] = ix[pi[u]];
+            ij[u] = ix[pi[u] + stride];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (t0 + 32 * u >= half) continue;
+          const int i = pi[u], j = i + stride;
+          const bool asc = (i & size) == 0;
+          const bool swap = asc ? before(dj[u], ij[u], di[u], ii[u])
+                                : before(di[u], ii[u], dj[u], ij[u]);
+          if (swap) {
+            d[i] = dj[u]; d[j] = di[u];
+            ix[i] = ij[u]; ix[j] = ii[u];
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
 // Per-warp exact top-K selection state.  bd/bi is the warp's buffer of
-// BUF entries in shared memory; count and thr are warp-uniform.
+// BUF entries (shared or global memory); count and thr are warp-uniform.
+// Entries at and past count are undefined: compact() fills the part of
+// the buffer it sorts.  WIDE sorts past 128 entries with
+// warp_bitonic_sort_wide (the indexed scans); the dense scan, whose
+// buffers are smaller, keeps the plain sort and the code it had.
+template <bool WIDE>
 struct WarpTopK {
   float* bd;
   int* bi;
@@ -87,25 +147,25 @@ struct WarpTopK {
   int count;
   float thr;
 
-  __device__ void init(int lane) {
-    for (int t = lane; t < BUF; t += 32) {
-      bd[t] = INFINITY;
-      bi[t] = INT_MAX;
-    }
+  __device__ void init() {
     count = 0;
     thr = INFINITY;
-    __syncwarp();
   }
 
-  // Sort the buffer, keep the best K, refresh the admission threshold.
+  // Sort the filled prefix (the next power of two >= count, at least 64,
+  // padded with (INF, INT_MAX)), keep the best K, refresh the admission
+  // threshold.
   __device__ void compact(int lane) {
-    warp_bitonic_sort(bd, bi, BUF, lane);
-    if (count > K) count = K;
-    for (int t = K + lane; t < BUF; t += 32) {
+    int n = 64;
+    while (n < count) n <<= 1;
+    for (int t = count + lane; t < n; t += 32) {
       bd[t] = INFINITY;
       bi[t] = INT_MAX;
     }
     __syncwarp();
+    if (WIDE && n > 128) warp_bitonic_sort_wide(bd, bi, n, lane);
+    else warp_bitonic_sort(bd, bi, n, lane);
+    if (count > K) count = K;
     if (count == K) thr = bd[K - 1];
   }
 
@@ -140,12 +200,12 @@ __host__ __device__ inline int buffer_size(int K) {
   return buf;
 }
 
-// Dynamic shared memory of one pass-one block.
+// Dynamic shared memory of one dense pass-one block; its warps' top-K
+// buffers only when they stay in shared memory (K <= K_SMEM).
 __host__ inline size_t partial_smem_bytes(int d, int K) {
-  const int buf = buffer_size(K);
-  return sizeof(float) * ((size_t)TILE_ROWS * (d + 1) + (size_t)WARPS * d
-                          + (size_t)WARPS * buf)
-         + sizeof(int) * (size_t)WARPS * buf;
+  const size_t bufs = K <= K_SMEM ? (size_t)WARPS * buffer_size(K) : 0;
+  return sizeof(float) * ((size_t)TILE_ROWS * (d + 1) + (size_t)WARPS * d)
+         + (sizeof(float) + sizeof(int)) * bufs;
 }
 
 // Scan rows [0, nrows) of one row block for every active warp's query.
@@ -156,7 +216,7 @@ __host__ inline size_t partial_smem_bytes(int d, int K) {
 // call this: it synchronises the block.
 template <typename Rows>
 __device__ void scan_rows(const Rows& rows, int nrows, int base_idx,
-                          bool warp_active, WarpTopK& top) {
+                          bool warp_active, WarpTopK<false>& top) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r0 = 0; r0 < nrows; r0 += TILE_ROWS) {
     const int nr = min(TILE_ROWS, nrows - r0);
@@ -209,40 +269,52 @@ struct FloatRows {
 
 // Pass two: fold the K-lists part[b, l, :] (l < nlists, only where
 // qmask[b * qmask_stride + l] != 0, or all when qmask is null) into the
-// running ascending K-list run[b, :].  K is a power of two.
+// running ascending K-list run[b, :].  K is a power of two <= K_MAX.
 __global__ void __launch_bounds__(MERGE_THREADS) merge_lists_kernel(
     const float* __restrict__ part_d, const int* __restrict__ part_i,
     const uint8_t* __restrict__ qmask, int qmask_stride, int nlists,
     float* __restrict__ run_d, int* __restrict__ run_i, int K) {
   extern __shared__ float msmem[];
+  __shared__ uint8_t take[MERGE_THREADS];
   float* md = msmem;
-  int* mi = reinterpret_cast<int*>(md + 2 * K);
+  int* mi = reinterpret_cast<int*>(md + K);
   const int b = blockIdx.x, tid = threadIdx.x;
   for (int t = tid; t < K; t += blockDim.x) {
     md[t] = run_d[(size_t)b * K + t];
     mi[t] = run_i[(size_t)b * K + t];
   }
-  for (int l = 0; l < nlists; ++l) {
-    if (qmask != nullptr && qmask[(size_t)b * qmask_stride + l] == 0)
-      continue;                                // uniform across the block
-    const float* pd = part_d + ((size_t)b * nlists + l) * K;
-    const int* pi = part_i + ((size_t)b * nlists + l) * K;
+  for (int l0 = 0; l0 < nlists; l0 += MERGE_THREADS) {
+    const int nl = min(MERGE_THREADS, nlists - l0);
     __syncthreads();
-    for (int t = tid; t < K; t += blockDim.x) {  // descending tail
-      md[2 * K - 1 - t] = pd[t];
-      mi[2 * K - 1 - t] = pi[t];
-    }
+    if (tid < nl)                              // this row's mask, coalesced
+      take[tid] = qmask == nullptr
+          || qmask[(size_t)b * qmask_stride + l0 + tid] != 0;
     __syncthreads();
-    for (int s = K; s >= 1; s >>= 1) {
-      for (int t = tid; t < K; t += blockDim.x) {
-        const int i = 2 * t - (t & (s - 1));
-        const int j = i + s;
-        if (before(md[j], mi[j], md[i], mi[i])) {
-          const float dt = md[i]; md[i] = md[j]; md[j] = dt;
-          const int it = mi[i]; mi[i] = mi[j]; mi[j] = it;
+    for (int j = 0; j < nl; ++j) {
+      if (!take[j]) continue;                  // uniform across the block
+      const size_t o = ((size_t)b * nlists + l0 + j) * K;
+      const float* pd = part_d + o;
+      const int* pi = part_i + o;
+      for (int t = tid; t < K; t += blockDim.x) {  // min(run, list reversed)
+        const float dl = pd[K - 1 - t];
+        const int il = pi[K - 1 - t];
+        if (before(dl, il, md[t], mi[t])) {
+          md[t] = dl;
+          mi[t] = il;
         }
       }
       __syncthreads();
+      for (int s = K >> 1; s >= 1; s >>= 1) {   // sort the bitonic K
+        for (int t = tid; t < (K >> 1); t += blockDim.x) {
+          const int i = 2 * t - (t & (s - 1));
+          const int j2 = i + s;
+          if (before(md[j2], mi[j2], md[i], mi[i])) {
+            const float dt = md[i]; md[i] = md[j2]; md[j2] = dt;
+            const int it = mi[i]; mi[i] = mi[j2]; mi[j2] = it;
+          }
+        }
+        __syncthreads();
+      }
     }
   }
   __syncthreads();
@@ -253,7 +325,7 @@ __global__ void __launch_bounds__(MERGE_THREADS) merge_lists_kernel(
 }
 
 __host__ inline size_t merge_smem_bytes(int K) {
-  return (sizeof(float) + sizeof(int)) * 2 * (size_t)K;
+  return (sizeof(float) + sizeof(int)) * (size_t)K;
 }
 
 __host__ inline cudaError_t allow_smem(const void* fn, size_t bytes) {

@@ -7,8 +7,10 @@ row indices; ``||q||^2`` is left to the caller.  Equal distances keep the
 smaller row index; misses are MASK_DIST with index -1.
 
 ``scan_topk`` launches the CUDA kernel (``csrc/scan_topk.cu``, which
-shares its body with the indexed scan) for CUDA tensors and runs the
-plain version beside it for CPU tensors.
+shares its top-K code with the indexed scans) for CUDA tensors and runs
+the plain version beside it for CPU tensors.  Every ``k_pad`` up to
+``K_MAX`` runs on the kernel; past ``K_SMEM`` each warp's top-K buffer
+lives in a global scratch the wrapper allocates.
 """
 from __future__ import annotations
 
@@ -18,12 +20,15 @@ import torch
 
 from . import build, ref
 from .ref import MASK_DIST
-from .scan_topk_indexed import K_MAX, SCRATCH_BYTES
+from .scan_topk_indexed import K_MAX, TOPK_SCRATCH_BYTES, buffer_size
 
 Tensor = torch.Tensor
 
 LAUNCHES = build.LaunchCounter("scan_topk")
 CHUNK_ROWS = 256             # rows per pass-one block (raised for huge N)
+SCRATCH_BYTES = 256 << 20    # bound on the (Q, chunks, k_pad) partial lists
+K_SMEM = 1024                # larger k_pad keeps its buffers in global memory
+WARPS = 8                    # queries per pass-one block
 
 
 def scan_topk_plain(queries: Tensor, xs: Tensor,
@@ -44,8 +49,8 @@ def scan_topk_cuda(queries: Tensor, xs: Tensor,
                    metric: str = "l2") -> Tuple[Tensor, Tensor]:
     """Launch the CUDA kernel.  Raises on any operand it does not take."""
     if k_pad < 1 or k_pad & (k_pad - 1) or k_pad > K_MAX:
-        raise ValueError(f"k_pad must be a power of two <= {K_MAX}, "
-                         f"got {k_pad}")
+        raise ValueError(f"k_pad must be a power of two <= K_MAX = "
+                         f"{K_MAX}, got {k_pad}")
     if metric not in ("l2", "ip"):
         raise ValueError(f"unknown metric: {metric}")
     dev = xs.device
@@ -80,6 +85,18 @@ def scan_topk_cuda(queries: Tensor, xs: Tensor,
         return out_d, out_i
     max_chunks = max(1, SCRATCH_BYTES // (q * k_pad * 8))
     rows = max(CHUNK_ROWS, -(-n // max_chunks))
+    gbuf, blocks = None, 0
+    if k_pad > K_SMEM:
+        # a block's buffers in global memory: at least one row block of
+        # k_pad rows, and few enough row blocks that one query tile's
+        # buffers fit the scratch bound
+        per_block = WARPS * buffer_size(k_pad) * 8
+        fit = max(1, TOPK_SCRATCH_BYTES // per_block)
+        rows = max(rows, k_pad, -(-n // fit))
+        n_chunks = -(-n // rows)
+        blocks = max(n_chunks, min(n_chunks * -(-q // WARPS), fit))
+        gbuf = torch.empty(blocks * per_block // 4, dtype=torch.float32,
+                           device=dev)
     n_chunks = -(-n // rows)
     part_d = torch.empty((q, n_chunks, k_pad), dtype=torch.float32,
                          device=dev)
@@ -89,8 +106,9 @@ def scan_topk_cuda(queries: Tensor, xs: Tensor,
     err = build.lib("scan_topk").scan_dense(
         queries.data_ptr(), xs.data_ptr(),
         None if valid is None else valid.data_ptr(),
-        part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), q, n, d, rows, k_pad,
+        part_d.data_ptr(), part_i.data_ptr(),
+        None if gbuf is None else gbuf.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), q, n, d, rows, k_pad, blocks,
         int(xs.dtype == torch.bfloat16), int(metric == "l2"), stream)
     build.check_launch(err, "scan_topk")
     LAUNCHES.add()

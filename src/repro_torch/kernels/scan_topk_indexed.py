@@ -13,7 +13,16 @@ index.  Misses are MASK_DIST with index -1.
 
 ``scan_topk_indexed`` launches the CUDA kernel (``csrc/
 scan_topk_indexed.cu``) for CUDA tensors and runs the plain version
-beside it for CPU tensors.
+beside it for CPU tensors.  Both kernels run the grouped driver of
+``csrc/scan_grouped.cuh``: the queries are grouped on the device by the
+union slots they probe (``group_queries_plain`` is that step in plain
+PyTorch), and one block scans one partition for up to ``QT`` of its
+queries.  Every ``k_pad`` up to ``K_MAX`` runs on the kernels; past what
+a block's shared memory holds, the per-query top-K buffers go to a global
+scratch the wrapper allocates.  A block keeps its tile's queries and a
+ring of staged rows in shared memory, so the row width has a limit too:
+1,892 f32 or 1,888 bf16 values, or 4,832 int8 codes, on an H100 (227 KB
+a block); past it the wrappers raise ``ValueError``.
 
 The int8 variant ``scan_topk_indexed_q8`` (``csrc/scan_topk_indexed_q8.cu``,
 replacing ``scan_topk_indexed_q8_pallas``) scans IVF-residual int8 codes:
@@ -23,14 +32,17 @@ formula).  ``quantize_int8`` / ``quantize_int8_residual`` make the codes.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import build, ref
 from .ref import MASK_DIST, quantize_int8, quantize_int8_residual
 
-__all__ = ["K_MAX", "LAUNCHES", "LAUNCHES_Q8", "live_rows",
+__all__ = ["K_MAX", "LAUNCHES", "LAUNCHES_Q8", "QT", "buffer_size",
+           "group_queries_cuda", "group_queries_plain", "live_rows",
+           "slot_order",
            "quantize_int8", "quantize_int8_residual", "scan_topk_indexed",
            "scan_topk_indexed_cuda", "scan_topk_indexed_plain",
            "scan_topk_indexed_q8", "scan_topk_indexed_q8_cuda",
@@ -40,13 +52,151 @@ Tensor = torch.Tensor
 
 LAUNCHES = build.LaunchCounter("scan_topk_indexed")
 LAUNCHES_Q8 = build.LaunchCounter("scan_topk_indexed_q8")
-K_MAX = 1024                 # largest k_pad the kernel's buffers take
-SCRATCH_BYTES = 256 << 20    # bound on the (B, Uc, k_pad) partial lists
+K_MAX = 16384                # largest k_pad the kernels take
+SCRATCH_BYTES = 2 << 30      # bound on the (B, Uc, k_pad) partial lists
+QT = 16                      # queries per tile of the grouped driver
+TOPK_SCRATCH_BYTES = 256 << 20   # bound on the global top-K buffers
 
 
 def _check_k_pad(k_pad: int) -> None:
     if k_pad < 1 or k_pad & (k_pad - 1):
         raise ValueError(f"k_pad must be a power of two, got {k_pad}")
+
+
+def _check_kernel_k_pad(k_pad: int) -> None:
+    _check_k_pad(k_pad)
+    if k_pad > K_MAX:
+        raise ValueError(f"k_pad {k_pad} exceeds the kernels' limit "
+                         f"K_MAX = {K_MAX}")
+
+
+def buffer_size(k_pad: int) -> int:
+    """Entries of one query's top-K buffer in the kernels: the power of
+    two >= k_pad + 32, at least 64 (``csrc/scan_common.cuh``)."""
+    buf = 64
+    while buf < k_pad + 32:
+        buf *= 2
+    return buf
+
+
+def slot_order(sel: Tensor, nrows: Tensor, uc: int) -> Tensor:
+    """(U,) int32: the order in which the kernels take the union slots,
+    within each chunk of ``uc`` slots the longest partitions first (ties
+    by slot), so the longest tiles start first."""
+    lens = nrows[sel.long()]
+    order = [u0 + torch.argsort(lens[u0:u0 + uc], descending=True,
+                                stable=True)
+             for u0 in range(0, sel.shape[0], uc)]
+    return torch.cat(order).to(torch.int32)
+
+
+def group_queries_plain(qmask: Tensor, order: Optional[Tensor] = None,
+                        uc: Optional[int] = None) -> Dict[str, Tensor]:
+    """The grouping step of the indexed kernels in plain PyTorch.  For
+    each union slot u: ``qlist[u, :qcount[u]]`` the queries b with
+    ``qmask[b, u]`` in increasing b (-1 after them), ``ntiles[u] =
+    ceil(qcount[u] / QT)``.  The tiles are listed slot by slot in
+    ``order`` (default: slot order), ``uc`` slots a chunk: ``work_u``
+    names each tile's slot, ``tile_off[u]`` is where u's tiles start and
+    ``chunk_off`` (chunks + 1,) where each chunk's start."""
+    b, u = qmask.shape
+    dev = qmask.device
+    uc = u if uc is None else uc
+    order = torch.arange(u, device=dev) if order is None else order.long()
+    qm = qmask.t()
+    qcount = qm.sum(dim=1, dtype=torch.int32)
+    first = torch.argsort((~qm).to(torch.uint8), dim=1, stable=True)
+    ar = torch.arange(b, device=dev)
+    qlist = torch.where(ar[None, :] < qcount[:, None], first, -1)
+    ntiles = ((qcount + QT - 1) // QT).to(torch.int32)
+    nt = ntiles[order]
+    start = torch.cumsum(nt, 0, dtype=torch.int32) - nt
+    tile_off = torch.empty(u, dtype=torch.int32, device=dev)
+    tile_off[order] = start
+    total = nt.sum(dtype=torch.int32).reshape(1)
+    chunk_off = torch.cat([start[0:u:uc], total])
+    work_u = torch.repeat_interleave(order.to(torch.int32), nt)
+    return {"qlist": qlist.to(torch.int32), "qcount": qcount,
+            "ntiles": ntiles, "tile_off": tile_off, "chunk_off": chunk_off,
+            "work_u": work_u}
+
+
+def _workspace(b: int, u: int, nchunks: int, dev) -> Tensor:
+    """The kernels' int32 workspace (``GroupedWs`` in
+    ``csrc/scan_grouped.cuh``): qlist (U, B), qcount, ntiles, tile_off,
+    chunk_off (chunks + 1), work_u (U * ceil(B / QT)) and one tile
+    counter per chunk."""
+    n = u * b + 3 * u + nchunks + 1 + u * -(-b // QT) + nchunks
+    return torch.empty(n, dtype=torch.int32, device=dev)
+
+
+def group_queries_cuda(qmask: Tensor, order: Optional[Tensor] = None,
+                       uc: Optional[int] = None) -> Dict[str, Tensor]:
+    """The grouping kernels alone on a CUDA ``qmask``, unpacked as
+    ``group_queries_plain`` returns it (qlist past qcount is -1)."""
+    if not qmask.is_cuda or qmask.dtype != torch.bool \
+            or not qmask.is_contiguous():
+        raise ValueError("qmask must be a contiguous bool CUDA tensor")
+    b, u = qmask.shape
+    uc = u if uc is None else uc
+    nch = -(-u // uc)
+    if order is None:
+        order = torch.arange(u, dtype=torch.int32, device=qmask.device)
+    order = order.to(torch.int32).contiguous()
+    ws = _workspace(b, u, nch, qmask.device)
+    stream = torch.cuda.current_stream(qmask.device).cuda_stream
+    build.check_launch(build.lib("scan_topk_indexed").group_queries(
+        qmask.data_ptr(), order.data_ptr(), ws.data_ptr(), b, u, uc,
+        stream), "group_queries")
+    sizes = [u * b, u, u, u, nch + 1, u * -(-b // QT)]
+    qlist, qcount, ntiles, tile_off, chunk_off, work_u = torch.split(
+        ws[:sum(sizes)], sizes)
+    ar = torch.arange(b, device=qmask.device)
+    qlist = torch.where(ar[None, :] < qcount[:, None], qlist.view(u, b), -1)
+    return {"qlist": qlist, "qcount": qcount, "ntiles": ntiles,
+            "tile_off": tile_off, "chunk_off": chunk_off,
+            "work_u": work_u[:int(chunk_off[-1])]}
+
+
+@functools.lru_cache(maxsize=None)
+def _placement(kind: str, d: int, k_pad: int, device: int) -> int:
+    """Where a block of the ``kind`` kernel ("f32", "bf16" or "q8") keeps
+    its top-K buffers at width ``d`` and ``k_pad`` on CUDA device
+    ``device``: 0 in shared memory, 1 in global scratch, 2 nowhere (the
+    rows are too wide for the block's shared memory).  The kernels'
+    ``grouped_placement`` decides, from the card's limit."""
+    with torch.cuda.device(device):
+        if kind == "q8":
+            got = build.lib("scan_topk_indexed_q8").scan_indexed_q8_placement(
+                d, k_pad)
+        else:
+            got = build.lib("scan_topk_indexed").scan_indexed_placement(
+                d, k_pad, int(kind == "bf16"))
+    if got < 0:
+        build.check_launch(-got, f"scan_topk_indexed ({kind}) placement")
+    return got
+
+
+def _grouped_scratch(kind: str, d: int, b: int, u: int, uc: int,
+                     k_pad: int, dev
+                     ) -> Tuple[Tensor, Optional[Tensor], int]:
+    """(workspace, global top-K buffers or None, their number of
+    blocks) for one launch of an indexed kernel."""
+    where = _placement(kind, d, k_pad, dev.index
+                       if dev.index is not None
+                       else torch.cuda.current_device())
+    if where == 2:
+        raise ValueError(f"rows of width {d} are too wide for the {kind} "
+                         f"kernel: its block's shared memory holds the "
+                         f"tile's queries and a ring of staged rows")
+    ws = _workspace(b, u, -(-u // uc), dev)
+    if where == 0:
+        return ws, None, 0
+    per_block = QT * buffer_size(k_pad) * 8
+    blocks = max(1, TOPK_SCRATCH_BYTES // per_block)
+    gbuf = torch.empty(blocks * per_block // 4, dtype=torch.float32,
+                       device=dev)
+    return ws, gbuf, blocks
 
 
 def scan_topk_indexed_plain(queries: Tensor, data: Tensor, valid: Tensor,
@@ -79,9 +229,7 @@ def scan_topk_indexed_cuda(queries: Tensor, data: Tensor, valid: Tensor,
                            sel: Tensor, qmask: Tensor, *, k_pad: int,
                            metric: str = "l2") -> Tuple[Tensor, Tensor]:
     """Launch the CUDA kernel.  Raises on any operand it does not take."""
-    _check_k_pad(k_pad)
-    if k_pad > K_MAX:
-        raise ValueError(f"k_pad {k_pad} exceeds the kernel's {K_MAX}")
+    _check_kernel_k_pad(k_pad)
     if metric not in ("l2", "ip"):
         raise ValueError(f"unknown metric: {metric}")
     dev = data.device
@@ -119,13 +267,18 @@ def scan_topk_indexed_cuda(queries: Tensor, data: Tensor, valid: Tensor,
     uc = max(1, min(u, SCRATCH_BYTES // (b * k_pad * 8)))
     part_d = torch.empty((b, uc, k_pad), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, uc, k_pad), dtype=torch.int32, device=dev)
+    kind = "bf16" if data.dtype == torch.bfloat16 else "f32"
+    ws, gbuf, blocks = _grouped_scratch(kind, d, b, u, uc, k_pad, dev)
     nrows = live_rows(valid)
+    order = slot_order(sel, nrows, uc)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = build.lib("scan_topk_indexed").scan_indexed(
         queries.data_ptr(), data.data_ptr(), valid.data_ptr(),
         nrows.data_ptr(), sel.data_ptr(), qmask.data_ptr(),
-        part_d.data_ptr(), part_i.data_ptr(), run_d.data_ptr(),
-        run_i.data_ptr(), b, u, s, d, k_pad, uc,
+        order.data_ptr(), ws.data_ptr(),
+        part_d.data_ptr(), part_i.data_ptr(),
+        None if gbuf is None else gbuf.data_ptr(), run_d.data_ptr(),
+        run_i.data_ptr(), b, u, s, d, k_pad, uc, blocks,
         int(data.dtype == torch.bfloat16), int(metric == "l2"), stream)
     build.check_launch(err, "scan_topk_indexed")
     LAUNCHES.add()
@@ -175,9 +328,7 @@ def scan_topk_indexed_q8_cuda(q_codes: Tensor, q_scales: Tensor,
     """Launch the int8 CUDA kernel.  Raises on any operand it does not
     take: the codes' width must be a multiple of 4 (the kernel reads them
     as 32-bit words for ``__dp4a``)."""
-    _check_k_pad(k_pad)
-    if k_pad > K_MAX:
-        raise ValueError(f"k_pad {k_pad} exceeds the kernel's {K_MAX}")
+    _check_kernel_k_pad(k_pad)
     if metric not in ("l2", "ip"):
         raise ValueError(f"unknown metric: {metric}")
     dev = codes.device
@@ -220,15 +371,19 @@ def scan_topk_indexed_q8_cuda(q_codes: Tensor, q_scales: Tensor,
     uc = max(1, min(u, SCRATCH_BYTES // (b * k_pad * 8)))
     part_d = torch.empty((b, uc, k_pad), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, uc, k_pad), dtype=torch.int32, device=dev)
+    ws, gbuf, blocks = _grouped_scratch("q8", d, b, u, uc, k_pad, dev)
     nrows = live_rows(valid)
+    order = slot_order(sel, nrows, uc)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = build.lib("scan_topk_indexed_q8").scan_indexed_q8(
         q_codes.data_ptr(), q_scales.data_ptr(), codes.data_ptr(),
         scales.data_ptr(), aux.data_ptr(), qc.data_ptr(), valid.data_ptr(),
         nrows.data_ptr(), sel.data_ptr(), qmask.data_ptr(),
-        part_d.data_ptr(), part_i.data_ptr(), run_d.data_ptr(),
-        run_i.data_ptr(), b, u, s, d, k_pad, uc, int(metric == "l2"),
-        stream)
+        order.data_ptr(), ws.data_ptr(),
+        part_d.data_ptr(), part_i.data_ptr(),
+        None if gbuf is None else gbuf.data_ptr(), run_d.data_ptr(),
+        run_i.data_ptr(), b, u, s, d, k_pad, uc, blocks,
+        int(metric == "l2"), stream)
     build.check_launch(err, "scan_topk_indexed_q8")
     LAUNCHES_Q8.add()
     return run_d, run_i

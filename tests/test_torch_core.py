@@ -246,6 +246,32 @@ def test_kmeans_seeds_like_reference_and_converges():
     assert np.mean(d.argmin(1) == a_t) > 0.99
 
 
+@pytest.mark.parametrize("onehot_elems", [1 << 24, 6 * 50])
+def test_lloyd_fixed_order_sums_match_reference(monkeypatch, onehot_elems):
+    """``_lloyd`` sums clusters by one-hot products over fixed chunks of
+    points (one chunk, or 50 points a chunk): on the k-means parity data
+    its centroids and assignments match the JAX package's ``_lloyd``
+    (``segment_sum``) at the parity tolerance, an empty cluster (a
+    duplicated initial centroid, reseeded) included, and a second run is
+    bit-equal."""
+    monkeypatch.setattr(kmeans, "_ONEHOT_ELEMS", onehot_elems)
+    x = jds.clustered(600, 8, n_clusters=6, seed=1).vectors
+    rng = np.random.default_rng(4)
+    init = x[rng.choice(len(x), 6, replace=False)].copy()
+    init[1] = init[0]                  # cluster 1 starts empty
+    c_j, a_j, _ = jkmeans._lloyd(jnp.asarray(x),
+                                 jnp.ones(len(x), dtype=bool),
+                                 jnp.asarray(init), 6, 8)
+    runs = [kmeans._lloyd(torch.as_tensor(x), torch.as_tensor(init), 6, 8)
+            for _ in range(2)]
+    c_t, a_t = (t.numpy() for t in runs[0])
+    np.testing.assert_allclose(c_t, np.asarray(c_j), rtol=1e-4, atol=1e-4)
+    assert np.mean(a_t == np.asarray(a_j)) > 0.99
+    assert (np.bincount(a_t, minlength=6) > 0).all()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
 def test_assign_host_gate_and_kernel_path_match_reference():
     rng = np.random.default_rng(6)
     c = rng.normal(size=(40, 8)).astype(np.float32)

@@ -204,8 +204,11 @@ def test_wrappers_raise_on_operands_the_kernels_do_not_take(dev):
     valid = torch.ones(3, 16, dtype=torch.bool, device=dev)
     sel = torch.arange(3, dtype=torch.int32, device=dev)
     qmask = torch.ones(2, 3, dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError):
-        sti.scan_topk_indexed(q, data, valid, sel, qmask, k_pad=2048)
+    with pytest.raises(ValueError):                # not a power of two
+        sti.scan_topk_indexed(q, data, valid, sel, qmask, k_pad=3000)
+    with pytest.raises(ValueError, match="K_MAX"):  # past the limit
+        sti.scan_topk_indexed(q, data, valid, sel, qmask,
+                              k_pad=2 * sti.K_MAX)
     with pytest.raises(ValueError):
         sti.scan_topk_indexed(q, data, valid, sel.long(), qmask, k_pad=8)
     with pytest.raises(ValueError):
@@ -330,6 +333,242 @@ def test_scan_topk_indexed_q8_matches_plain(dev, metric, p, s, d, b, u,
         sti.scan_topk_indexed_q8(q_codes[:, :-1].contiguous(), q_scales,
                                  codes[:, :, :-1].contiguous(), *args[3:],
                                  k_pad=k_pad, metric=metric)
+
+
+def _q8_case(dev, p, s, d, b, u, seed):
+    """IVF-residual int8 operands of the q8 scan for random data."""
+    rng = np.random.default_rng(seed)
+    cents = torch.as_tensor(rng.normal(size=(p, d)).astype(np.float32) * 4,
+                            device=dev)
+    data = cents[:, None, :] + torch.as_tensor(
+        rng.normal(size=(p, s, d)).astype(np.float32), device=dev)
+    codes, scales = sti.quantize_int8_residual(data, cents)
+    valid = torch.as_tensor(rng.random((p, s)) < 0.9, device=dev)
+    q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32),
+                        device=dev) * 4
+    return q, cents, codes, scales, valid
+
+
+# ---------------------------------------------------------------------------
+# k past 1024 on the card, and reproducible k-means
+# ---------------------------------------------------------------------------
+
+def test_scan_topk_k1025_on_the_card(dev):
+    """q (1, 8) against x (1025, 8) at k = 1025 returns (1, 1025) from the
+    kernel (k_pad 2048, past the old limit of 1024)."""
+    rng = np.random.default_rng(0)
+    q = torch.as_tensor(rng.normal(size=(1, 8)).astype(np.float32),
+                        device=dev)
+    x = torch.as_tensor(rng.normal(size=(1025, 8)).astype(np.float32),
+                        device=dev)
+    before = st.LAUNCHES.count
+    d, i = ops.scan_topk(q, x, 1025)
+    assert st.LAUNCHES.count == before + 1
+    assert tuple(d.shape) == (1, 1025) and tuple(i.shape) == (1, 1025)
+    dp, ip_ = ops.scan_topk(q.cpu(), x.cpu(), 1025, impl="cuda")
+    _same_topk(d, i, dp.to(dev), ip_.to(dev))
+
+
+@pytest.mark.parametrize("k", [1025, 3000, 9000])
+def test_ops_return_k_columns_past_1024_on_the_card(dev, k):
+    """ops.scan_topk, scan_selected_topk and scan_selected_topk_q8 at
+    k = 1025 (k_pad 2048), k = 3000 (k_pad 4096) and k = 9000 (k_pad
+    16384 = K_MAX, over more rows than that): k columns from the kernels,
+    matching the plain versions."""
+    rng = np.random.default_rng(k)
+    n, s = max(3500, k + 1000), max(700, k // 8 + 200)
+    assert ops._next_pow2(min(k, n, 8 * s)) <= st.K_MAX == sti.K_MAX
+    q = torch.as_tensor(rng.normal(size=(20, 16)).astype(np.float32),
+                        device=dev)
+    x = torch.as_tensor(rng.normal(size=(n, 16)).astype(np.float32),
+                        device=dev)
+    before = st.LAUNCHES.count
+    d, i = ops.scan_topk(q, x, k)
+    assert st.LAUNCHES.count == before + 1 and tuple(i.shape) == (20, k)
+    _same_topk(d, i, *(t.to(dev) for t in ops.scan_topk(
+        q.cpu(), x.cpu(), k, impl="cuda")))
+
+    p, b, u = 12, 20, 8
+    data = torch.as_tensor(rng.normal(size=(p, s, 16)).astype(np.float32),
+                           device=dev)
+    valid = torch.as_tensor(rng.random((p, s)) < 0.9, device=dev)
+    sel = torch.as_tensor(rng.choice(p, u, replace=False).astype(np.int32),
+                          device=dev)
+    qmask = torch.as_tensor(rng.random((b, u)) < 0.7, device=dev)
+    qmask[:, 0] = True
+    before = sti.LAUNCHES.count
+    d, i = ops.scan_selected_topk(q, data, valid, sel, qmask, k)
+    assert sti.LAUNCHES.count == before + 1 and tuple(i.shape) == (b, k)
+    _same_topk(d, i, *(t.to(dev) for t in ops.scan_selected_topk(
+        q.cpu(), data.cpu(), valid.cpu(), sel.cpu(), qmask.cpu(), k,
+        impl="cuda")))
+
+    q8, cents, codes, scales, valid8 = _q8_case(dev, p, s, 16, b, u, k)
+    before = sti.LAUNCHES_Q8.count
+    d, i = ops.scan_selected_topk_q8(q8, codes, scales, valid8, sel, qmask,
+                                     k, centroids=cents)
+    assert sti.LAUNCHES_Q8.count == before + 1 and tuple(i.shape) == (b, k)
+    _same_topk(d, i, *(t.to(dev) for t in ops.scan_selected_topk_q8(
+        q8.cpu(), codes.cpu(), scales.cpu(), valid8.cpu(), sel.cpu(),
+        qmask.cpu(), k, centroids=cents.cpu(), impl="cuda")))
+
+
+def test_kmeans_on_the_card_is_reproducible(dev):
+    """Two builds at seed 0 (20,000 x 128, k = 64) give bit-equal
+    centroids and equal assignments: the cluster sums are taken in a
+    fixed order."""
+    from repro_torch.core import kmeans
+    x = datasets.clustered(20_000, 128, n_clusters=64, seed=0).vectors
+    c1, a1 = kmeans.kmeans(x, 64, seed=0, device=dev)
+    c2, a2 = kmeans.kmeans(x, 64, seed=0, device=dev)
+    np.testing.assert_array_equal(c1, c2)
+    np.testing.assert_array_equal(a1, a2)
+
+
+# ---------------------------------------------------------------------------
+# the grouped driver of the indexed scans
+# ---------------------------------------------------------------------------
+
+def _grouped_qmask(rng, b, u):
+    """A mask with a slot no query probes, one every query probes, and
+    slots probed by QT - 1, QT, QT + 1, 2 QT - 1, 2 QT and 2 QT + 1
+    queries (all of them where b is smaller)."""
+    qt = sti.QT
+    qmask = rng.random((b, u)) < 0.2
+    qmask[:, 0] = False
+    qmask[:, 1] = True
+    for col, n in zip(range(2, u), (qt - 1, qt, qt + 1, 2 * qt - 1, 2 * qt,
+                                    2 * qt + 1)):
+        qmask[:, col] = False
+        qmask[rng.permutation(b)[:n], col] = True
+    return qmask
+
+
+@pytest.mark.parametrize("uc", [None, 4])
+@pytest.mark.parametrize("b,u", [(1, 9), (40, 9), (70, 12), (1500, 1100)])
+def test_group_queries_kernel_matches_plain(dev, b, u, uc):
+    """The grouping kernels against their plain version, exactly, with
+    the slots in the kernels' order (longest partitions first within each
+    chunk of ``uc`` slots); B and U past one pass of either kernel."""
+    rng = np.random.default_rng(b * 100 + u)
+    qmask = torch.as_tensor(_grouped_qmask(rng, b, u), device=dev)
+    sel = torch.as_tensor(rng.permutation(u).astype(np.int32), device=dev)
+    nrows = torch.as_tensor(rng.integers(0, 50, size=u).astype(np.int32),
+                            device=dev)
+    order = sti.slot_order(sel, nrows, u if uc is None else uc)
+    got = sti.group_queries_cuda(qmask, order, uc)
+    want = sti.group_queries_plain(qmask, order, uc)
+    torch.cuda.synchronize()
+    for name, t in want.items():
+        assert torch.equal(got[name], t), name
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "q8"])
+@pytest.mark.parametrize("b,k_pad", [(1, 16), (40, 64), (70, 256)])
+def test_grouped_driver_edge_cases_match_plain(dev, kind, metric, b, k_pad):
+    """Slots probed by no query, by every query, and by counts around
+    multiples of the query tile; B = 1 too.  Rows of d = 32 (16-byte
+    copies) over partitions of up to 300 rows (several row stages)."""
+    rng = np.random.default_rng(b + k_pad)
+    p, s, d, u = 14, 300, 32, 9
+    qmask = torch.as_tensor(_grouped_qmask(rng, b, u), device=dev)
+    sel = torch.as_tensor(rng.choice(p, u, replace=False).astype(np.int32),
+                          device=dev)
+    if kind == "q8":
+        q, cents, codes, scales, valid = _q8_case(dev, p, s, d, b, u, b)
+        valid[sel[3].long(), 100:] = False         # a short partition
+        q_codes, q_scales, aux, qc = ref.q8_scan_operands(
+            q, codes, scales, valid, sel, metric, cents)
+        args = (q_codes, q_scales, codes, scales, aux, qc, valid, sel, qmask)
+        before = sti.LAUNCHES_Q8.count
+        dk, ik = sti.scan_topk_indexed_q8(*args, k_pad=k_pad, metric=metric)
+        assert sti.LAUNCHES_Q8.count == before + 1
+        dp, ip_ = sti.scan_topk_indexed_q8_plain(*args, k_pad=k_pad,
+                                                 metric=metric)
+        torch.cuda.synchronize()
+        assert torch.equal(dk, dp)                 # bit for bit
+    else:
+        dtype = torch.float32 if kind == "f32" else torch.bfloat16
+        data = torch.as_tensor(rng.normal(size=(p, s, d)).astype(np.float32),
+                               device=dev).to(dtype)
+        valid = torch.as_tensor(rng.random((p, s)) < 0.9, device=dev)
+        valid[sel[3].long(), 100:] = False         # a short partition
+        q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32),
+                            device=dev).to(dtype)
+        before = sti.LAUNCHES.count
+        dk, ik = sti.scan_topk_indexed(q, data, valid, sel, qmask,
+                                       k_pad=k_pad, metric=metric)
+        assert sti.LAUNCHES.count == before + 1
+        dp, ip_ = sti.scan_topk_indexed_plain(q, data, valid, sel, qmask,
+                                              k_pad=k_pad, metric=metric)
+    _same_topk(dk, ik, dp, ip_)
+
+
+@pytest.mark.parametrize("kind,d,k_pad", [
+    ("f32", 960, 256), ("bf16", 960, 256),    # GIST-960's width
+    ("f32", 1892, 256), ("bf16", 1888, 256),  # the widest rows that fit
+    ("q8", 256, 256), ("q8", 768, 256),
+    ("q8", 1036, 256),        # the widest the plain version holds exact
+    ("f32", 130, 1024), ("q8", 132, 1024),    # buffers in global memory
+])
+def test_grouped_driver_wide_rows_match_plain(dev, kind, d, k_pad):
+    """Wide rows, staged in column chunks, with the top-K buffers in
+    shared or global memory as the block's shared memory allows, against
+    the plain versions (q8 bit for bit)."""
+    rng = np.random.default_rng(d + k_pad)
+    p, s, b, u = 8, 150, 37, 6
+    sel = torch.as_tensor(rng.choice(p, u, replace=False).astype(np.int32),
+                          device=dev)
+    qmask = torch.as_tensor(_grouped_qmask(rng, b, u), device=dev)
+    if kind == "q8":
+        q, cents, codes, scales, valid = _q8_case(dev, p, s, d, b, u, d)
+        q_codes, q_scales, aux, qc = ref.q8_scan_operands(
+            q, codes, scales, valid, sel, "l2", cents)
+        args = (q_codes, q_scales, codes, scales, aux, qc, valid, sel, qmask)
+        dk, ik = sti.scan_topk_indexed_q8(*args, k_pad=k_pad)
+        dp, ip_ = sti.scan_topk_indexed_q8_plain(*args, k_pad=k_pad)
+        torch.cuda.synchronize()
+        assert torch.equal(dk, dp)                 # bit for bit
+    else:
+        dtype = torch.float32 if kind == "f32" else torch.bfloat16
+        data = torch.as_tensor(rng.normal(size=(p, s, d)).astype(np.float32),
+                               device=dev).to(dtype)
+        valid = torch.as_tensor(rng.random((p, s)) < 0.9, device=dev)
+        q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32),
+                            device=dev).to(dtype)
+        dk, ik = sti.scan_topk_indexed(q, data, valid, sel, qmask,
+                                       k_pad=k_pad)
+        dp, ip_ = sti.scan_topk_indexed_plain(q, data, valid, sel, qmask,
+                                              k_pad=k_pad)
+    _same_topk(dk, ik, dp, ip_)
+
+
+def test_grouped_driver_width_limits_on_the_card(dev):
+    """Where a block keeps its top-K buffers (0 shared memory, 1 global,
+    2 the rows do not fit) at the widths the docs name, and the wrappers
+    raise ValueError past the widest rows."""
+    at = torch.cuda.current_device()
+    assert sti._placement("f32", 128, 128, at) == 0     # the main path
+    assert sti._placement("q8", 128, 256, at) == 0      # the int8 path
+    assert sti._placement("f32", 868, 256, at) == 0
+    assert sti._placement("f32", 872, 256, at) == 1
+    assert sti._placement("q8", 736, 256, at) == 0
+    assert sti._placement("q8", 740, 256, at) == 1
+    assert sti._placement("f32", 128, 512, at) == 1     # buffers > 64 KB
+    assert sti._placement("f32", 1892, sti.K_MAX, at) == 1
+    assert sti._placement("f32", 1896, 16, at) == 2
+    assert sti._placement("bf16", 1888, 16, at) == 1
+    assert sti._placement("bf16", 1896, 16, at) == 2
+    assert sti._placement("q8", 4832, 16, at) == 1
+    assert sti._placement("q8", 4836, 16, at) == 2
+    data = torch.zeros((2, 8, 1896), device=dev)
+    valid = torch.ones((2, 8), dtype=torch.bool, device=dev)
+    sel = torch.arange(2, dtype=torch.int32, device=dev)
+    qmask = torch.ones((3, 2), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="too wide"):
+        sti.scan_topk_indexed(data[0, :3].contiguous(), data, valid, sel,
+                              qmask, k_pad=16)
 
 
 def test_int8_executor_on_the_card_launches_the_q8_kernel(dev):

@@ -206,6 +206,81 @@ def test_scan_selected_returns_k_columns_past_capacity():
         _close_finite(dt, dj)
 
 
+@pytest.mark.parametrize("k", [513, 600])
+def test_scan_topk_returns_k_columns_past_512(k):
+    """Q=8, N=1024, d=8, k > 512: the port returns k columns on every
+    path, equal to the JAX package's ``impl="jnp"`` result.  The JAX
+    package's Pallas path returns only 512 here: its tile caps ``k_pad``
+    at ``block_s <= 512`` and slices ``[:, :k]`` (a fault of the
+    reference, ROADMAP Queue 3 item 3)."""
+    rng = np.random.default_rng(0)
+    qs = rng.normal(size=(8, 8)).astype(np.float32)
+    xs = rng.normal(size=(1024, 8)).astype(np.float32)
+    dj, ij = jops.scan_topk(jnp.asarray(qs), jnp.asarray(xs), k, impl="jnp")
+    _, ip_ = jops.scan_topk(jnp.asarray(qs), jnp.asarray(xs), k,
+                            impl="pallas")
+    assert np.asarray(ij).shape == (8, k)
+    assert np.asarray(ip_).shape == (8, 512)
+    for impl in ("cuda", "torch"):
+        dt, it = ops.scan_topk(_t(qs), _t(xs), k, impl=impl)
+        assert tuple(it.shape) == (8, k)
+        assert _recall(it, np.asarray(ij)) >= 0.999
+        _close_finite(dt, dj)
+
+
+@pytest.mark.parametrize("uc", [None, 4])
+@pytest.mark.parametrize("b,u", [(1, 5), (37, 9), (100, 12)])
+def test_group_queries_plain_lists_each_probe_once(b, u, uc):
+    """The indexed kernels' grouping step in plain PyTorch: every (b, u)
+    with qmask[b, u] appears exactly once in u's list, in increasing b,
+    and exactly once among the tiles of QT queries, which are listed
+    slot by slot in the kernels' order (longest partitions first within
+    each chunk of ``uc`` slots).  Columns include one no query probes,
+    one every query probes, and counts just below, at and just above
+    multiples of QT."""
+    rng = np.random.default_rng(b + u)
+    qmask = rng.random((b, u)) < 0.3
+    qmask[:, 0] = False                              # probed by none
+    qmask[:, 1] = True                               # probed by all
+    for col, n in zip(range(2, u), (15, 16, 17, 31, 32, 33)):
+        qmask[:, col] = False
+        qmask[rng.permutation(b)[:n], col] = True    # n, or all of b
+    sel = rng.permutation(u).astype(np.int32)
+    nrows = rng.integers(0, 50, size=u).astype(np.int32)
+    step = u if uc is None else uc
+    order = sti.slot_order(_t(sel), _t(nrows), step)
+    o = _n(order)
+    for u0 in range(0, u, step):                     # a permutation per
+        chunk = o[u0:u0 + step]                      # chunk, longest first
+        assert sorted(chunk) == list(range(u0, min(u0 + step, u)))
+        lens = nrows[sel[chunk]]
+        assert (np.diff(lens) <= 0).all()
+    g = sti.group_queries_plain(_t(qmask), order, uc)
+    qt = sti.QT
+    counts = qmask.sum(axis=0)
+    np.testing.assert_array_equal(_n(g["qcount"]), counts)
+    for col in range(u):
+        lst = _n(g["qlist"][col])
+        np.testing.assert_array_equal(lst[:counts[col]],
+                                      np.nonzero(qmask[:, col])[0])
+        assert (lst[counts[col]:] == -1).all()
+    ntiles = -(-counts // qt)
+    np.testing.assert_array_equal(_n(g["ntiles"]), ntiles)
+    starts = np.r_[0, np.cumsum(ntiles[o])]
+    np.testing.assert_array_equal(_n(g["tile_off"])[o], starts[:-1])
+    np.testing.assert_array_equal(_n(g["chunk_off"]),
+                                  np.r_[starts[0:u:step], starts[-1]])
+    np.testing.assert_array_equal(_n(g["work_u"]), np.repeat(o, ntiles[o]))
+    # the tiles cover each probe exactly once
+    seen = np.zeros((b, u), dtype=int)
+    off = _n(g["tile_off"])
+    for t, col in enumerate(_n(g["work_u"])):
+        q0 = (t - off[col]) * qt
+        for bb in _n(g["qlist"][col])[q0:min(q0 + qt, counts[col])]:
+            seen[bb, col] += 1
+    np.testing.assert_array_equal(seen, qmask.astype(int))
+
+
 def test_scan_selected_bf16_storage():
     rng = np.random.default_rng(7)
     data32 = rng.normal(size=(8, 64, 16)).astype(np.float32)
@@ -521,7 +596,7 @@ def test_q8_wrapper_takes_the_plain_version_on_cpu_and_refuses_operands():
     with pytest.raises(ValueError, match="power of two"):
         sti.scan_topk_indexed_q8_cuda(*args, k_pad=12)
     with pytest.raises(ValueError, match="exceeds"):
-        sti.scan_topk_indexed_q8_cuda(*args, k_pad=2048)
+        sti.scan_topk_indexed_q8_cuda(*args, k_pad=2 * sti.K_MAX)
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
