@@ -47,6 +47,12 @@ It then holds each CUDA kernel against its plain PyTorch version at the
 shapes the paths gave it, times both and a one-library-call yardstick,
 profiles one warm ``search_batch``, and prints one JSON line of kernels,
 the card's name and power limit, and a last JSON line with the device.
+The dense scan is held and timed at each of its callers' shapes (the
+centroid pass, the latency profile at the serving batch and at one
+query, one-query partition probes), beside an empty kernel's launch, the
+kernels one one-query call launches (one, and no memset), both of its
+designs' times around their crossover and one per-query probe split
+into its copy in, scan and pull-back.
 
 It exits non-zero, printing no result, when CUDA is unavailable or the
 port is not beside it, and on any failed check.  Detailed records go to
@@ -153,6 +159,20 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def median_ms(*fns, rounds: int = 5):
+    """``cuda_ms`` of each of ``fns``, the median over ``rounds`` rounds
+    that take the functions in turn: in a long process a collection or a
+    page fault on the host lands in one window of 10 calls, not in the
+    median, and the functions compared share the host's state."""
+    import statistics
+    gc.collect()
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for t, fn in zip(times, fns):
+            t.append(cuda_ms(fn))
+    return [statistics.median(t) for t in times]
 
 
 def device_ms(fn, reps: int = 10) -> float:
@@ -321,6 +341,193 @@ def worklist(sti, qmask, sel_l, nrows) -> dict:
             "queries_per_tile": pairs / max(tiles, 1),
             "kernel_rows": kernel_rows, "rows_read": rows_read,
             "reads_per_partition": kernel_rows / max(rows_read, 1)}
+
+
+def count_kernels(fn) -> dict:
+    """Device kernels and memsets that one warm call of ``fn`` launches,
+    from torch.profiler's device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    memsets = [n for n in names if "memset" in n.lower()]
+    kernels = [n for n in names if n not in memsets
+               and "memcpy" not in n.lower()]
+    return {"kernels": len(kernels), "memsets": len(memsets),
+            "names": sorted(set(k[:60] for k in kernels))}
+
+
+def scan_topk_phase(st, ops, idx, q, dev, launches, seed) -> dict:
+    """The dense scan at the shapes of its four callers: the centroid
+    pass (Q = B queries against the P centroids, k_pad of m = max(ceil(
+    f_m P), min_candidates)), the lambda profile at the serving batch and
+    at one query (N = 16,384, k_pad 128), and one-query probes of a
+    partition (N ~ 1,000 from the index, and 16,384; k_pad 16 and 128).
+    Each is held against the plain version and timed by events and by
+    device time beside the library call (``torch.matmul`` + ``torch.
+    topk``, ||x||^2 outside the timing).  Also: the launch time of an
+    empty kernel (the floor of the one-query rows), the device kernels
+    one Q = 1 call launches (gated: one, and no memset), both designs'
+    device times around the crossover, and one ``QuakeIndex.
+    _scan_vectors`` call split into its host-to-card copy, the kernel
+    and the pull-back.  Returns the ``kernels`` row (the centroid pass's
+    numbers, the others under ``shapes``)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed + 17)
+    cents = torch.as_tensor(idx.levels[0].centroids, device=dev)
+    q_dev = torch.as_tensor(q, device=dev)
+    b, d = q.shape
+    nc = cents.shape[0]
+    m = min(max(int(np.ceil(idx.config.f_m * nc)),
+                idx.config.min_candidates), nc)
+    sizes = idx.levels[0].sizes()
+    part = int(np.argmin(np.abs(sizes - 1000)))       # a ~1,000-row probe
+    x_part = torch.as_tensor(idx.levels[0].vectors[part], device=dev)
+
+    def rand(rows):
+        return torch.as_tensor(rng.normal(size=(rows, d)).astype(
+            np.float32), device=dev)
+    x16k = rand(16384)
+    q_prof = rand(b)
+    cases = [("centroid_pass", q_dev, cents, ops._next_pow2(m)),
+             ("profile_batch", q_prof, x16k, 128),
+             ("profile_one", q_prof[:1], x16k, 128),
+             ("probe_k16", q_dev[:1], x_part, 16),
+             ("probe_k128", q_dev[:1], x_part, 128),
+             ("probe16k_k16", q_dev[:1], x16k, 16),
+             ("probe16k_k128", q_dev[:1], x16k, 128)]
+    lib = st.build.lib("scan_topk")
+    stream = torch.cuda.current_stream().cuda_stream
+    empty = {"ms": cuda_ms(lambda: lib.launch_empty(stream)),
+             "device_ms": device_ms(lambda: lib.launch_empty(stream))}
+    print(f"scan_topk: an empty kernel's launch takes {empty['ms']:.4f} ms "
+          f"by events ({empty['device_ms']:.4f} device time)")
+    shapes = {}
+    for name, qq, xx, kp in cases:
+        nq, nx = qq.shape[0], xx.shape[0]
+        before = st.LAUNCHES.count
+        dk, ik = st.scan_topk_cuda(qq, xx, k_pad=kp)
+        per_call = st.LAUNCHES.count - before
+        dp, ip_ = st.scan_topk_plain(qq, xx, k_pad=kp)
+        err, tol = compare_topk(f"scan_topk {name}", dk, ik, dp, ip_)
+        x2 = (xx * xx).sum(1)
+
+        def kern(qq=qq, xx=xx, kp=kp):
+            return st.scan_topk_cuda(qq, xx, k_pad=kp)
+
+        def library(qq=qq, xx=xx, x2=x2, kp=min(kp, nx)):
+            return torch.topk(x2 - 2.0 * torch.matmul(qq, xx.T), kp, dim=1,
+                              largest=False)
+        bound_ms, bound_by = bound((nq + nx) * d * 4 + 2 * nq * kp * 4,
+                                   2.0 * nq * nx * d, F32_FLOPS_PER_S)
+        ms, lib_ms = median_ms(kern, library)
+        row = {"Q": nq, "N": nx, "d": d, "k_pad": kp,
+               "design": st.design(nq), "launches_per_call": per_call,
+               "max_abs_err": err, "tol": tol, "ms": ms,
+               "device_ms": device_ms(kern),
+               "plain_ms": cuda_ms(lambda: st.scan_topk_plain(
+                   qq, xx, k_pad=kp)),
+               "library_ms": lib_ms, "library_device_ms": device_ms(library),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if nq == 1 and nx == x_part.shape[0]:
+            row["profiled"] = count_kernels(kern)
+            if row["profiled"]["kernels"] != 1 or \
+                    row["profiled"]["memsets"]:
+                fail(f"scan_topk {name}: one call launched "
+                     f"{row['profiled']}, not one kernel and no memset")
+        shapes[name] = row
+        row["faster_than_library"] = {
+            "events": row["ms"] < row["library_ms"],
+            "device": row["device_ms"] < row["library_device_ms"]}
+        print(f"scan_topk {name} (Q={nq}, N={nx}, k_pad {kp}, "
+              f"{row['design']}): err {err:.3g}, {row['ms']:.4f} ms "
+              f"({row['device_ms']:.4f} device), library "
+              f"{row['library_ms']:.4f} ({row['library_device_ms']:.4f}), "
+              f"bound {bound_ms:.5f} ({bound_by}), plain "
+              f"{row['plain_ms']:.4f}; faster than the library "
+              f"{row['faster_than_library']}"
+              + (f"; kernels a call {row['profiled']}"
+                 if "profiled" in row else ""))
+    # both designs' device times around the crossover
+    crossover = []
+    saved = st.CROSSOVER_Q
+    try:
+        for nq in (1, 2, 3, 4, 6, 8):
+            for xx in (x_part, x16k):
+                for kp in (16, 128):
+                    row = {"Q": nq, "N": xx.shape[0], "k_pad": kp}
+                    for design, cut in (("rows", nq + 1), ("tiles", 0)):
+                        st.CROSSOVER_Q = cut
+                        row[design] = device_ms(
+                            lambda: st.scan_topk_cuda(q_prof[:nq], xx,
+                                                      k_pad=kp))
+                    crossover.append(row)
+    finally:
+        st.CROSSOVER_Q = saved
+    print("scan_topk crossover (device ms; the wrapper takes rows below "
+          f"Q = {st.CROSSOVER_Q}):")
+    for r in crossover:
+        print(f"  Q={r['Q']:2d} N={r['N']:6d} k_pad {r['k_pad']:4d}: rows "
+              f"{r['rows']:.4f}, tiles {r['tiles']:.4f}")
+    # one per-query probe: host-to-card copy, kernel, pull-back
+    xs_np = idx.levels[0].vectors[part]
+    x2_np = idx.levels[0].sqnorms[part]
+    ids_np = idx.levels[0].ids[part]
+    q1 = np.ascontiguousarray(q[0])
+    kk = 10
+
+    def wall(fn, reps=200):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+    qd = torch.as_tensor(q1[None, :], device=dev)
+    xd = torch.as_tensor(xs_np, device=dev)
+    dd, ii = ops.scan_topk(qd, xd, kk, metric=idx.config.metric)
+
+    def copy_in():
+        torch.as_tensor(q1[None, :], device=dev)
+        torch.as_tensor(xs_np, device=dev)
+        torch.cuda.synchronize()
+
+    def scan():
+        ops.scan_topk(qd, xd, kk, metric=idx.config.metric)
+        torch.cuda.synchronize()
+
+    def pull():
+        dd[0].cpu().numpy()
+        ii[0].cpu().numpy()
+    probe = {"rows": int(xs_np.shape[0]), "k": kk,
+             "scan_vectors_ms": wall(lambda: idx._scan_vectors(
+                 q1, xs_np, x2_np, ids_np, kk)),
+             "copy_in_ms": wall(copy_in), "scan_ms": wall(scan),
+             "pull_back_ms": wall(pull)}
+    print(f"per-query probe of {probe['rows']} rows (host clock): "
+          f"_scan_vectors {probe['scan_vectors_ms']:.4f} ms = copy in "
+          f"{probe['copy_in_ms']:.4f} + ops.scan_topk "
+          f"{probe['scan_ms']:.4f} + pull back {probe['pull_back_ms']:.4f}")
+    main = shapes["centroid_pass"]
+    return {"name": "scan_topk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/scan_topk.cu",
+            "replaces": "src/repro/kernels/scan_topk.py:168",
+            "launches": launches["scan_topk"],
+            **{k: main[k] for k in ("max_abs_err", "tol", "ms", "device_ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "library_device_ms")},
+            "shape": {k: main[k] for k in ("Q", "N", "d", "k_pad",
+                                           "design")},
+            "shapes": shapes, "empty_kernel": empty,
+            "crossover": crossover, "per_query_probe": probe}
 
 
 def main() -> int:
@@ -749,38 +956,11 @@ def main() -> int:
             print(f"exact re-rank of the B x 2k candidates: "
                   f"{record['rerank_gather_ms']:.1f} ms (host)")
 
-    # centroid pass (fused planner): Q = B queries against P centroids
+    # the dense scan at its callers' shapes (the centroid pass first)
+    kernels.append(scan_topk_phase(st, ops, idx, q, dev, launches,
+                                   args.seed))
     cents = torch.as_tensor(idx.levels[0].centroids, device=dev)
-    m = min(max(int(np.ceil(idx.config.f_m * cents.shape[0])),
-                idx.config.min_candidates), cents.shape[0])
-    kp = ops._next_pow2(m)
-    dk, ik = st.scan_topk_cuda(q_dev, cents, k_pad=kp)
-    dp, ip_ = st.scan_topk_plain(q_dev, cents, k_pad=kp)
-    err, tol = compare_topk("scan_topk", dk, ik, dp, ip_)
-    ms = cuda_ms(lambda: st.scan_topk_cuda(q_dev, cents, k_pad=kp))
-    dev_ms = device_ms(lambda: st.scan_topk_cuda(q_dev, cents, k_pad=kp))
-    plain_ms = cuda_ms(lambda: st.scan_topk_plain(q_dev, cents, k_pad=kp))
-    c2 = (cents * cents).sum(1)
-
-    def library():
-        return torch.topk(c2 - 2.0 * torch.matmul(q_dev, cents.T), kp,
-                          dim=1, largest=False)
-    lib_ms, lib_dev_ms = cuda_ms(library), device_ms(library)
     nc = cents.shape[0]
-    bound_ms, bound_by = bound((b + nc) * d * 4 + 2 * b * kp * 4,
-                               2.0 * b * nc * d, F32_FLOPS_PER_S)
-    kernels.append({
-        "name": "scan_topk", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/scan_topk.cu",
-        "replaces": "src/repro/kernels/scan_topk.py:168",
-        "launches": launches["scan_topk"], "max_abs_err": err, "tol": tol,
-        "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-        "library_device_ms": lib_dev_ms,
-        "shape": {"Q": b, "N": nc, "d": d, "k_pad": kp}})
-    print(f"scan_topk: err {err:.3g} (tol {tol:.3g}), {ms:.4f} ms "
-          f"({dev_ms:.4f} device time), library {lib_ms:.4f} ms "
-          f"({lib_dev_ms:.4f})")
 
     # assignment: an insert burst against the base centroids, and an
     # exact-tie case (a centroid duplicated at a smaller index)

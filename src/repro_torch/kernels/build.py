@@ -52,9 +52,14 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
         "scan_indexed_q8_placement": "ii",
     },
     "scan_topk": {
-        # q, xs, valid, part_d, part_i, gbuf, out_d, out_i,
-        # Q, N, d, R, K, scratch_blocks, is_bf16, l2, stream
-        "scan_dense": "pppppppp" + "iiiiiiii" + "p",
+        # q, xs, valid, part_d, part_i, gbuf, out_d, out_i, Q, N, d, K,
+        # splits, tiles_per_split, grid, vec, is_bf16, l2, stream
+        "scan_dense_tiles": "pppppppp" + "iiiiiiiiii" + "p",
+        # q, xs, valid, part_d, part_i, gbuf, ticket, out_d, out_i, Q, N,
+        # d, K, blocks, rows_per_warp, vec, is_bf16, l2, stream
+        "scan_dense_rows": "ppppppppp" + "iiiiiiiii" + "p",
+        # stream
+        "launch_empty": "p",
     },
     "kmeans_assign": {
         # xs, centroids, aux, out_a, out_d, part_a, part_d, N, C, d,

@@ -23,12 +23,9 @@
 // too.  This is what lets every k_pad up to K_MAX = 16384 run on the
 // kernels.
 //
-// Dense pass one (scan_rows, scan_topk.cu; one block per (row block,
-// tile of WARPS queries)): each warp owns one query.  Rows are staged
-// TILE_ROWS at a time in shared memory by a row policy (FloatRows) whose
-// row stride is padded by one word, so lane r reading row r hits
-// distinct banks; lane r computes the distance of row r.  Each (query,
-// row block) writes its sorted K-list to scratch.
+// The dense scan (scan_topk.cu) has loops of its own: a register-tiled
+// GEMM whose epilogue offers each tile's rows to WarpTopK, and a row scan
+// for few queries whose blocks fold their warps' lists.
 //
 // Pass two (merge_lists_kernel, one block per query): folds that query's
 // K-lists into its running K-list.  Each fold keeps the K smallest of
@@ -47,13 +44,10 @@
 namespace quake {
 
 constexpr float MASK_DIST = 3.0e38f;
-constexpr int WARPS = 8;          // query slots per pass-one block
+constexpr int WARPS = 8;          // warps of a scan block
 constexpr int THREADS = WARPS * 32;
-constexpr int TILE_ROWS = 32;     // rows staged in shared memory per step
 constexpr int MERGE_THREADS = 128;
 constexpr int K_MAX = 16384;      // the largest K the merge pass takes
-constexpr int K_SMEM = 1024;      // dense scan: larger K keeps its buffers
-                                  // in global scratch
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) {
@@ -92,7 +86,7 @@ __device__ inline void warp_bitonic_sort(float* d, int* ix, int n,
   }
 }
 
-// The same sort for n of 256 and more (the indexed scans' buffers): a
+// The same sort for n of 256 and more (the larger buffers): a
 // lane loads four of its compare-exchanges of a stage before it compares
 // them, so their loads' latencies overlap instead of adding up.
 __device__ inline void warp_bitonic_sort_wide(float* d, int* ix, int n,
@@ -135,10 +129,7 @@ __device__ inline void warp_bitonic_sort_wide(float* d, int* ix, int n,
 // Per-warp exact top-K selection state.  bd/bi is the warp's buffer of
 // BUF entries (shared or global memory); count and thr are warp-uniform.
 // Entries at and past count are undefined: compact() fills the part of
-// the buffer it sorts.  WIDE sorts past 128 entries with
-// warp_bitonic_sort_wide (the indexed scans); the dense scan, whose
-// buffers are smaller, keeps the plain sort and the code it had.
-template <bool WIDE>
+// the buffer it sorts, with warp_bitonic_sort_wide past 128 entries.
 struct WarpTopK {
   float* bd;
   int* bi;
@@ -163,7 +154,7 @@ struct WarpTopK {
       bi[t] = INT_MAX;
     }
     __syncwarp();
-    if (WIDE && n > 128) warp_bitonic_sort_wide(bd, bi, n, lane);
+    if (n > 128) warp_bitonic_sort_wide(bd, bi, n, lane);
     else warp_bitonic_sort(bd, bi, n, lane);
     if (count > K) count = K;
     if (count == K) thr = bd[K - 1];
@@ -199,73 +190,6 @@ __host__ __device__ inline int buffer_size(int K) {
   while (buf < K + 32) buf <<= 1;
   return buf;
 }
-
-// Dynamic shared memory of one dense pass-one block; its warps' top-K
-// buffers only when they stay in shared memory (K <= K_SMEM).
-__host__ inline size_t partial_smem_bytes(int d, int K) {
-  const size_t bufs = K <= K_SMEM ? (size_t)WARPS * buffer_size(K) : 0;
-  return sizeof(float) * ((size_t)TILE_ROWS * (d + 1) + (size_t)WARPS * d)
-         + (sizeof(float) + sizeof(int)) * bufs;
-}
-
-// Scan rows [0, nrows) of one row block for every active warp's query.
-// ``rows`` is the row policy: rows.stage(r0, nr, warp, lane) copies rows
-// [r0, r0 + nr) into shared memory (all threads), and rows.dist(r0, lane,
-// out) computes the distance of row r0 + lane from the staged copy and
-// returns whether the row is a candidate.  Every thread of the block must
-// call this: it synchronises the block.
-template <typename Rows>
-__device__ void scan_rows(const Rows& rows, int nrows, int base_idx,
-                          bool warp_active, WarpTopK<false>& top) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r0 = 0; r0 < nrows; r0 += TILE_ROWS) {
-    const int nr = min(TILE_ROWS, nrows - r0);
-    __syncthreads();                          // previous tile consumed
-    rows.stage(r0, nr, warp, lane);
-    __syncthreads();
-    if (warp_active) {
-      float dist = INFINITY;
-      bool ok = false;
-      if (lane < nr) ok = rows.dist(r0, lane, dist);
-      top.push(lane, dist, base_idx + r0 + lane, ok);
-    }
-  }
-}
-
-// f32 or bf16 rows, staged as f32 with row stride d + 1; qv is the warp's
-// query in f32 (shared memory).
-template <typename T>
-struct FloatRows {
-  const T* x;                 // the row block's first row
-  const uint8_t* valid;       // its first flag, or null
-  int d;
-  float coef;
-  bool l2;
-  const float* qv;
-  float* xs;
-
-  __device__ void stage(int r0, int nr, int warp, int lane) const {
-    const int ld = d + 1;
-    for (int r = warp; r < nr; r += WARPS) {
-      const T* src = x + (size_t)(r0 + r) * d;
-      for (int j = lane; j < d; j += 32) xs[r * ld + j] = to_f32(src[j]);
-    }
-  }
-
-  __device__ bool dist(int r0, int lane, float& out) const {
-    const float* xr = xs + lane * (d + 1);
-    float acc = 0.f, x2 = 0.f;
-    for (int j = 0; j < d; ++j) {
-      const float xv = xr[j];
-      acc = fmaf(qv[j], xv, acc);
-      x2 = fmaf(xv, xv, x2);
-    }
-    const bool v = valid == nullptr || valid[r0 + lane] != 0;
-    const float aux = (l2 ? x2 : 0.f) + (v ? 0.f : MASK_DIST);
-    out = aux + coef * acc;
-    return v && out < MASK_DIST;
-  }
-};
 
 // Pass two: fold the K-lists part[b, l, :] (l < nlists, only where
 // qmask[b * qmask_stride + l] != 0, or all when qmask is null) into the

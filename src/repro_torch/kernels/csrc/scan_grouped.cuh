@@ -292,11 +292,11 @@ __global__ void __launch_bounds__(THREADS) grouped_scan_kernel(
     bd = a.gbuf_d + (size_t)blockIdx.x * QT * buf;
     bi = a.gbuf_i + (size_t)blockIdx.x * QT * buf;
   }
-  WarpTopK<true> top[MQ];       // of queries WARPS - 1 - warp, + WARPS, ..
+  WarpTopK top[MQ];       // of queries WARPS - 1 - warp, + WARPS, ..
 #pragma unroll
   for (int i = 0; i < MQ; ++i) {
     const int slot = warp + WARPS * i;
-    top[i] = WarpTopK<true>{bd + (size_t)slot * buf,
+    top[i] = WarpTopK{bd + (size_t)slot * buf,
                             bi + (size_t)slot * buf, a.K, buf, 0, INFINITY};
   }
   // a query's padding past width is never written again and reads as 0

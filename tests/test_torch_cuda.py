@@ -133,8 +133,97 @@ def test_scan_topk_matches_plain(dev, dtype, q_n, n, d, k_pad, masked,
         if masked else None
     dp, ip_ = st.scan_topk_plain(q, xs, valid, k_pad=k_pad)
     _same_topk(*st.scan_topk(q, xs, valid, k_pad=k_pad), dp, ip_)
-    monkeypatch.setattr(st, "CHUNK_ROWS", 64)          # many chunks
+    monkeypatch.setattr(st, "BLOCKS_PER_SM", 64)   # a split a row tile
+    monkeypatch.setattr(st, "ROWS_PER_WARP", 32)   # and many row blocks
     _same_topk(*st.scan_topk(q, xs, valid, k_pad=k_pad), dp, ip_)
+
+
+def _resolve_q(q):
+    """A query count of the design tests: an int, or "C-1", "C", "C+1"
+    around the crossover between the two designs."""
+    if isinstance(q, int):
+        return q
+    return st.CROSSOVER_Q + {"C-1": -1, "C": 0, "C+1": 1}[q]
+
+
+# (Q, N, d, k_pad, dtype, metric, masked): Q in {1, 2, around the
+# crossover, 1024}, N in {1, 63, 1000, 16384, 100003}, d in {5, 128,
+# 960}, k_pad in {1, 16, 64, 128, 2048, 16384}, f32/bf16, L2/IP, masks
+F32, BF16 = torch.float32, torch.bfloat16
+DESIGN_CASES = [
+    (1, 1000, 128, 16, F32, "l2", False),
+    (1, 1000, 128, 128, F32, "ip", True),
+    (1, 16384, 128, 16, BF16, "l2", False),
+    (1, 16384, 128, 128, F32, "l2", False),
+    (1, 100003, 128, 64, F32, "l2", True),
+    (1, 1, 5, 1, F32, "l2", False),
+    (1, 63, 5, 64, F32, "ip", False),
+    (1, 1000, 960, 2048, F32, "l2", False),
+    (1, 16384, 960, 16384, BF16, "ip", False),
+    (2, 63, 128, 16, BF16, "ip", True),
+    (2, 16384, 5, 128, F32, "l2", False),
+    ("C-1", 1000, 128, 64, F32, "l2", True),
+    ("C-1", 100003, 960, 16, BF16, "l2", False),
+    ("C", 1000, 128, 64, F32, "l2", True),
+    ("C", 63, 960, 128, BF16, "ip", False),
+    ("C+1", 16384, 128, 2048, F32, "l2", False),
+    ("C+1", 1, 5, 16, F32, "ip", True),
+    (1024, 1000, 128, 64, F32, "l2", False),
+    (1024, 16384, 128, 128, F32, "ip", True),
+    (1024, 100003, 128, 16, BF16, "l2", False),
+    (1024, 63, 5, 1, F32, "l2", False),
+    (1024, 1000, 960, 16384, F32, "l2", False),
+    (1024, 16384, 960, 2048, BF16, "ip", True),
+]
+
+
+@pytest.mark.parametrize("q_n,n,d,k_pad,dtype,metric,masked", DESIGN_CASES)
+def test_scan_topk_designs_match_plain(dev, q_n, n, d, k_pad, dtype, metric,
+                                       masked):
+    """Both designs of the dense kernel ("rows" below the crossover,
+    "tiles" from it on) against the plain version, at the shapes of every
+    caller and past them."""
+    q_n = _resolve_q(q_n)
+    rng = np.random.default_rng(q_n + n + d + k_pad)
+    q = torch.as_tensor(rng.normal(size=(q_n, d)).astype(np.float32),
+                        device=dev).to(dtype)
+    xs = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32),
+                         device=dev).to(dtype)
+    valid = torch.as_tensor(rng.random(n) < 0.7, device=dev) \
+        if masked else None
+    before = st.LAUNCHES.count
+    dk, ik = st.scan_topk(q, xs, valid, k_pad=k_pad, metric=metric)
+    assert st.LAUNCHES.count == before + 1
+    _same_topk(dk, ik, *st.scan_topk_plain(q, xs, valid, k_pad=k_pad,
+                                           metric=metric))
+
+
+@pytest.mark.parametrize("q_n", [1, "C-1", "C", 1024])
+@pytest.mark.parametrize("split", [False, True])
+def test_scan_topk_duplicated_rows_keep_the_smaller_index(dev, monkeypatch,
+                                                          q_n, split):
+    """Rows repeated many times over, with small integer values, so every
+    distance is exact in f32 in any order: the kernel's ids and distances
+    equal the plain version's exactly (equal distances keep the smaller
+    index), with the rows in one block or split over many (tiles split
+    one a split, rows 32 a warp), twice in a row (the "rows" design's
+    ticket is reset by its last block)."""
+    q_n = _resolve_q(q_n)
+    if split:
+        monkeypatch.setattr(st, "BLOCKS_PER_SM", 64)
+        monkeypatch.setattr(st, "ROWS_PER_WARP", 32)
+    rng = np.random.default_rng(5)
+    base = rng.integers(-3, 4, size=(40, 16)).astype(np.float32)
+    xs = torch.as_tensor(base[rng.integers(0, 40, 5000)], device=dev)
+    q = torch.as_tensor(rng.integers(-3, 4, size=(q_n, 16)),
+                        dtype=torch.float32, device=dev)
+    valid = torch.as_tensor(rng.random(5000) < 0.9, device=dev)
+    for metric in ("l2", "ip"):
+        dp, ip_ = st.scan_topk_plain(q, xs, valid, k_pad=256, metric=metric)
+        for _ in range(2):
+            dk, ik = st.scan_topk(q, xs, valid, k_pad=256, metric=metric)
+            torch.cuda.synchronize()
+            assert torch.equal(ik, ip_) and torch.equal(dk, dp)
 
 
 @pytest.mark.parametrize("n,c,d", [(100, 7, 8), (1000, 333, 64),

@@ -228,6 +228,82 @@ def test_scan_topk_returns_k_columns_past_512(k):
         _close_finite(dt, dj)
 
 
+def test_scan_topk_design_picks_rows_below_the_crossover():
+    """The dense kernel's dispatch: the row scan below CROSSOVER_Q
+    queries, the tiled GEMM from it on, whatever N."""
+    c = st.CROSSOVER_Q
+    assert c >= 2
+    assert [st.design(q) for q in (1, c - 1, c, c + 1, 1024)] == \
+        ["rows", "rows", "tiles", "tiles", "tiles"]
+
+
+@pytest.mark.parametrize("q,n,k_pad", [
+    (1024, 1000, 64), (1024, 16384, 128), (1024, 100_003, 16),
+    (5, 16384, 16), (1024, 1000, 16384), (1, 1000, 2048)])
+def test_scan_topk_tiles_plan_sizes_the_scratch(q, n, k_pad):
+    """The "tiles" plan at 132 SMs: the splits cover the row tiles, fill
+    about BLOCKS_PER_SM blocks an SM in one wave, fold within
+    TILE_MERGE_ENTRIES and SCRATCH_BYTES; top-K buffers past
+    TILE_BUF_SMEM go to a global scratch within TOPK_SCRATCH_BYTES."""
+    sms = 132
+    p = st.tiles_plan(q, n, k_pad, sms)
+    qtiles, rtiles = -(-q // st.QT), -(-n // st.RT)
+    assert p["splits"] * p["tiles_per_split"] >= rtiles
+    assert (p["splits"] - 1) * p["tiles_per_split"] < rtiles
+    assert qtiles * p["splits"] <= max(qtiles, st.BLOCKS_PER_SM * sms)
+    assert p["splits"] * k_pad <= max(k_pad, st.TILE_MERGE_ENTRIES)
+    per_block = st.QT * sti.buffer_size(k_pad) * 8
+    assert p["part"] == (2 * q * p["splits"] * k_pad if p["splits"] > 1
+                         else 0)
+    assert 4 * p["part"] <= max(2 * st.SCRATCH_BYTES, 8 * q * k_pad)
+    if per_block > st.TILE_BUF_SMEM:
+        assert p["gbuf"] * 4 == p["grid"] * per_block
+        assert p["gbuf"] * 4 <= max(per_block, sti.TOPK_SCRATCH_BYTES)
+        assert 1 <= p["grid"] <= qtiles * p["splits"]
+    else:
+        assert p["gbuf"] == 0 and p["grid"] == qtiles * p["splits"]
+    if (q, n, k_pad) == (1024, 1000, 64):      # the centroid pass
+        assert (p["splits"], p["tiles_per_split"], p["grid"]) == (8, 1, 256)
+
+
+@pytest.mark.parametrize("n,k_pad", [(1, 16), (63, 1), (1000, 16),
+                                     (16384, 128), (100_003, 64),
+                                     (16384, 2048), (1000, 16384)])
+def test_scan_topk_rows_plan_sizes_the_scratch(n, k_pad):
+    """The "rows" plan at 132 SMs: whole 32-row batches a warp covering
+    N with no empty block, no more blocks than SMs or than the last
+    block's merge holds, and top-K buffers in global scratch past
+    ROW_BUF_SMEM."""
+    q, sms = 2, 132
+    p = st.rows_plan(q, n, k_pad, sms)
+    rows, blocks = p["rows_per_warp"], p["blocks"]
+    assert rows % 32 == 0 and rows >= 32
+    assert blocks * st.WARPS * rows >= n > (blocks - 1) * st.WARPS * rows
+    assert blocks <= max(1, min(sms, st.MERGE_BYTES // (8 * k_pad)))
+    assert p["part"] == (2 * q * blocks * k_pad if blocks > 1 else 0)
+    per_block = st.WARPS * sti.buffer_size(k_pad) * 8
+    assert p["gbuf"] * 4 == (blocks * per_block
+                             if per_block > st.ROW_BUF_SMEM else 0)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("q_n", ["1", "C+1"])
+def test_scan_topk_designs_on_cpu_match_pallas(metric, q_n):
+    """ops.scan_topk's kernel path (the plain version on a CPU) against
+    the JAX package's Pallas kernel in interpret mode, at one query (the
+    "rows" design on the card) and just past the crossover ("tiles")."""
+    q = 1 if q_n == "1" else st.CROSSOVER_Q + 1
+    rng = np.random.default_rng(31 + q)
+    qs = rng.normal(size=(q, 24)).astype(np.float32)
+    xs = rng.normal(size=(300, 24)).astype(np.float32)
+    dp, ip_ = jops.scan_topk(jnp.asarray(qs), jnp.asarray(xs), 16,
+                             metric=metric, impl="pallas")
+    dt, it = ops.scan_topk(_t(qs), _t(xs), 16, metric=metric, impl="cuda")
+    assert tuple(dt.shape) == (q, 16) and it.dtype == torch.int32
+    assert _recall(it, np.asarray(ip_)) >= 0.999
+    np.testing.assert_allclose(_n(dt), np.asarray(dp), rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.parametrize("uc", [None, 4])
 @pytest.mark.parametrize("b,u", [(1, 5), (37, 9), (100, 12)])
 def test_group_queries_plain_lists_each_probe_once(b, u, uc):
