@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--n 1000000] [--batch 1024] [--seed 0]
                           [--wiki-n 1000000] [--months 12]
+                          [--serve-months 12]
 
-With no arguments it runs four paths, each with the kernels' launch
+With no arguments it runs five paths, each with the kernels' launch
 counts set to 0 just before it and read just after:
 
 1. The main path, the SIFT1M-shaped cell: 1,000,000 clustered synthetic
@@ -29,7 +30,29 @@ counts set to 0 just before it and read just after:
    the exact ground truth.  Each month also reports the pass that the
    single-query latency model would make on the same statistics, rolled
    back after it.
-4. LM serving (``LM_CONFIG``, qwen2.5-14b), after the
+4. Online serving (``launch/serve.replay_runtime``) of the same
+   Wikipedia-style workload at ``--wiki-n`` vectors (its first
+   ``--serve-months`` months of inserts and 1024 queries; the generator
+   makes no deletes): ``ServingRuntime`` with k=10 at recall target 0.9,
+   the fused planner (its centroid pass on the card, through the dense
+   scan kernel), flushes of 256 queries or after 5 ms (the deadline
+   ticker), the
+   result cache, drift-triggered maintenance under the default
+   triggers, metrics, ``scan_backend="auto"`` (the device rounds on the
+   card) and a WAL with checkpoints under a temporary directory
+   (``fsync="batch"``).  Then the admission groups after the last write
+   replayed through both scan backends (the same ids), one warm flush
+   under ``torch.profiler``, those queries again at int8 storage (the q8
+   kernel), one more insert burst through a runtime re-attached to the
+   WAL directory, and ``ServingRuntime.recover`` on that directory (it
+   must replay the insert and land on the live fingerprint).  The
+   kernels are held against their plain versions on this path's own
+   operands: the largest insert burst's assignment, the largest
+   centroid pass, and up to four rounds of each indexed scan (the q8
+   scan bit-equal).  It prints recall@10 per month, latency,
+   throughput, rounds and riders, cache, maintenance, durability and
+   recovery numbers beside the card's name and power limit.
+5. LM serving (``LM_CONFIG``, qwen2.5-14b), after the
    Quake paths' tensors are freed.  First exact f32 checks at full width
    and two layers: prefill logits with the flash kernel against the
    plain attention, and decode at position t against a re-prefill over
@@ -61,6 +84,7 @@ port is not beside it, and on any failed check.  Detailed records go to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import subprocess
@@ -98,6 +122,17 @@ LM_TOL = 1e-4
 LM_CONFIG = "qwen25_14b"
 LM_PROMPTS, LM_PROMPT_LEN, LM_DECODE = 4, 4096, 32
 LM_TIME_LEN = 32768
+# the serving path: k, recall target, the planner (the fused one plans on
+# the card: its centroid pass is the dense scan kernel; the vectorized
+# one plans in host numpy), and the near-tie allowance of its host/device
+# agreement (two f32 scans that sum in another order; a differing id must
+# lie within 2 * (REL * |kth| + ABS) of the k-th exact distance)
+SERVE_K, SERVE_TARGET, SERVE_PLANNER = 10, 0.9, "fused"
+SERVE_TIE_REL, SERVE_TIE_ABS = 1e-5, 1e-5
+# the serving rounds held against the plain versions: at most this many
+# per scan, each one whose plain version's gather of the union (its rows
+# in the storage type and widened to f32) fits in this many bytes
+SERVE_CHECK_ROUNDS, SERVE_PLAIN_BYTES = 4, 16e9
 
 
 def fail(msg: str) -> None:
@@ -120,6 +155,8 @@ def parse_args():
     ap.add_argument("--months", type=int, default=12)
     ap.add_argument("--month-queries", type=int, default=512,
                     help="per-query searches per month (access statistics)")
+    ap.add_argument("--serve-months", type=int, default=12,
+                    help="months of the workload the serving path replays")
     return ap.parse_args()
 
 
@@ -966,18 +1003,7 @@ def main() -> int:
     # exact-tie case (a centroid duplicated at a smaller index)
     xs = torch.as_tensor(all_x[1], device=dev)
     aux = (cents * cents).sum(1)
-    ak, dk = ka.kmeans_assign_cuda(xs, cents, aux)
-    ap, dp = ka.kmeans_assign_plain(xs, cents, aux)
-    tol_x = TOL_REL * dp.abs() + TOL_ABS
-    err, tol = float((dk - dp).abs().max()), float(tol_x.max())
-    if bool(((dk - dp).abs() > tol_x).any()):
-        fail(f"kmeans_assign: minima beyond their tolerance, max |diff| "
-             f"{err:.3g}")
-    dist = aux[None] - 2.0 * (xs @ cents.T)
-    two = torch.topk(dist, 2, dim=1, largest=False).values
-    clear = (two[:, 1] - two[:, 0]) > 2 * tol_x
-    if bool(((ak != ap) & clear).any()):
-        fail("kmeans_assign: assignments differ away from ties")
+    err, tol, ap = hold_assign(ka, "kmeans_assign", xs, cents, aux)
     tied = cents.clone()
     top = int(torch.mode(ap.long()).values)
     lo_idx = 0 if top != 0 else 1
@@ -1020,7 +1046,32 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- path 3: the dynamic loop (paper Fig. 4) ------------------------
-    record["dynamic"] = run_dynamic(args, dev, start_path, end_path)
+    t = time.perf_counter()
+    wl = wiki_workload(args)
+    workload_s = time.perf_counter() - t
+    record["dynamic"] = run_dynamic(args, wl, dev, start_path, end_path)
+    record["dynamic"]["workload_s"] = workload_s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- path 5: online serving (launch/serve.replay_runtime) -----------
+    t = time.perf_counter()
+    record["serving"] = run_serving(args, wl, dev, start_path, end_path)
+    record["serving"]["path_s"] = time.perf_counter() - t
+    print(f"serving path took {record['serving']['path_s']:.1f} s")
+    for row in kernels:      # each kernel's launches on the serving path
+        base = row["name"].split("[")[0]
+        if base == "scan_topk_indexed_q8":
+            row["serving_launches"] = \
+                record["serving"]["int8_launches"][base]
+        elif base in record["serving"]["launches"]:
+            row["serving_launches"] = record["serving"]["launches"][base]
+        if row["name"] in record["serving"]["kernel_checks"]:
+            # held against the plain version on the serving path's own
+            # operands
+            row["serving_check"] = \
+                record["serving"]["kernel_checks"][row["name"]]
+    del wl
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1058,7 +1109,18 @@ def dry_pass(idx, lam, tau):
         restore_index(idx, ckpt)
 
 
-def run_dynamic(args, dev, start_path, end_path) -> dict:
+def wiki_workload(args):
+    """The Wikipedia-style workload the dynamic loop and the serving path
+    share (inner product, ``--wiki-n`` vectors, 1024 queries a month)."""
+    from repro_torch.data.wikipedia import wikipedia_workload
+    return wikipedia_workload(n_total=args.wiki_n, dim=args.dim,
+                              months=args.months,
+                              queries_per_month=max(args.batch,
+                                                    args.month_queries),
+                              seed=args.seed)
+
+
+def run_dynamic(args, wl, dev, start_path, end_path) -> dict:
     """The dynamic loop on the Wikipedia-style workload: build, profile
     lambda on the card, then per month the insert burst, per-query APS
     searches (which record access statistics), one maintenance pass, the
@@ -1083,17 +1145,9 @@ def run_dynamic(args, dev, start_path, end_path) -> dict:
                                   get_executor, profile)
     from repro_torch.core import kmeans
     from repro_torch.core.cost_model import paper_tau_ns
-    from repro_torch.data.wikipedia import wikipedia_workload
     from repro_torch.data.workload import IncrementalGroundTruth
     k = 10
     out = {"months": []}
-    t = time.perf_counter()
-    wl = wikipedia_workload(n_total=args.wiki_n, dim=args.dim,
-                            months=args.months,
-                            queries_per_month=max(args.batch,
-                                                  args.month_queries),
-                            seed=args.seed)
-    out["workload_s"] = time.perf_counter() - t
     start_path()
     # lambda per query, in device time: the serving batch's scan, which
     # prices maintenance, and the single-query scan, whose pass is
@@ -1245,6 +1299,526 @@ def run_dynamic(args, dev, start_path, end_path) -> dict:
                                            "scan_topk_indexed",
                                            "scan_topk_indexed_q8"))
     return out
+
+
+def serving_agreement(index, queries, groups, k, after_device=None):
+    """Replay ``groups`` (lists of query rows in admission order) single-
+    threaded through two runtimes over ``index``, one per scan backend;
+    ``after_device()`` runs between the two.  Returns per backend (the
+    per-query results, the runtime's rounds, its indexed-scan
+    launches)."""
+    from repro_torch.core import ServingConfig, ServingRuntime
+    from repro_torch.kernels import scan_topk_indexed as sti
+    out = {}
+    for backend in ("device", "host"):
+        rt = ServingRuntime(index, ServingConfig(
+            k=k, recall_target=SERVE_TARGET, flush_size=10 ** 9,
+            ticker=False, scan_backend=backend, planner=SERVE_PLANNER,
+            record_stats=False, metrics=False, maint_min_ops=10 ** 9,
+            maint_max_ops=None))
+        before = sti.LAUNCHES.count
+        qids = []
+        for rows in groups:
+            qids += [rt.submit_query(queries[r]) for r in rows]
+            rt.flush()
+        rt.drain()
+        out[backend] = ([rt.result(i) for i in qids],
+                        rt.stats()["rounds_run"],
+                        sti.LAUNCHES.count - before)
+        rt.close()
+        if backend == "device" and after_device is not None:
+            after_device()
+    return out
+
+
+@contextlib.contextmanager
+def patched(*swaps):
+    """Set each (object, attribute, value) of ``swaps`` for the block and
+    put the old values back after it."""
+    old = [(obj, name, getattr(obj, name)) for obj, name, _ in swaps]
+    for obj, name, value in swaps:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for obj, name, value in old:
+            setattr(obj, name, value)
+
+
+def capture_rounds(real, calls, data_arg, by_ref, limit):
+    """A stand-in for an indexed-scan wrapper ``real`` that records the
+    operands of up to ``limit`` calls whose plain version fits in
+    SERVE_PLAIN_BYTES of card memory (it gathers the union's rows of
+    argument ``data_arg`` and widens them to f32), then launches as
+    ``real`` does.  The snapshot's operands (positions ``by_ref``) are
+    kept by reference, the round's own cloned."""
+    def run(*a, **kw):
+        codes, sel = a[data_arg], a[-2]
+        elem = codes.element_size()
+        need = (int(sel.shape[0]) * int(codes.shape[1]) * int(codes.shape[2])
+                * (elem + (4 if elem != 4 else 0)))
+        if len(calls) < limit and need <= SERVE_PLAIN_BYTES:
+            calls.append(([t if i in by_ref else t.clone()
+                           for i, t in enumerate(a)], dict(kw)))
+        return real(*a, **kw)
+    return run
+
+
+def hold_rounds(name, calls, kern, plain, exact):
+    """Hold each captured round's kernel result against its plain
+    version (``compare_topk``; ``exact``: distances bit-equal).  Returns
+    the check's record."""
+    if not calls:
+        fail(f"{name}: no round of the serving path was captured")
+    errs, shapes = [], []
+    for i, (a, kw) in enumerate(calls):
+        dk, ik = kern(*a, **kw)
+        dp, ip_ = plain(*a, **kw)
+        b, u = int(a[-1].shape[0]), int(a[-2].shape[0])
+        err, tol = compare_topk(f"{name} serving round {i} (B {b}, U {u}, "
+                                f"k_pad {kw['k_pad']})", dk, ik, dp, ip_)
+        if exact and err != 0.0:
+            fail(f"{name} serving round {i}: distances differ from the "
+                 f"plain version's by {err!r}, not 0")
+        errs.append(err)
+        shapes.append({"B": b, "U": u, "S": int(a[-3].shape[1]),
+                       "k_pad": kw["k_pad"]})
+    return {"rounds": len(calls), "max_abs_err": max(errs),
+            "shapes": shapes}
+
+
+def exact_ip(index, q, ids):
+    """Exact f64 inner-product distances (-q.x) of the external ``ids``,
+    in their order, from the index's host rows: the arbiter of a
+    near-tie at the k-th distance."""
+    import numpy as np
+    lvl0 = index.levels[0]
+    x = []
+    for e in ids:
+        j = index.id_map[int(e)]
+        x.append(lvl0.vectors[j][np.nonzero(lvl0.ids[j] == e)[0][0]])
+    return -(np.stack(x).astype(np.float64) @ q.astype(np.float64))
+
+
+def run_serving(args, wl, dev, start_path, end_path) -> dict:
+    """The online serving path: ``launch/serve.replay_runtime`` drives the
+    Wikipedia-style workload through ``ServingRuntime`` (micro-batching
+    with a 5 ms deadline ticker, riding probe rounds on the card, the
+    result cache, drift-triggered maintenance, metrics, a WAL with
+    checkpoints under a temporary directory); then a replay of the
+    admission groups after the last write through both scan backends,
+    the idle share of one warm flush, those queries again at int8
+    storage, one more insert burst through a runtime re-attached to the
+    WAL directory, and ``ServingRuntime.recover`` on that directory.
+
+    Fails unless every query reaches a terminal status with no scan
+    fault, every device round launched the indexed-scan kernel and no
+    round ran on the host, every insert burst launched ``kmeans_assign``,
+    the int8 leg launched the q8 kernel, the kernels agree with their
+    plain versions on this path's own operands (the largest insert
+    burst's assignment, the largest centroid pass and up to
+    SERVE_CHECK_ROUNDS rounds of the f32 and the int8 scans; the int8
+    scan bit-equal), the two backends return the same ids (a differing
+    id only at a near-tie with the k-th distance, by exact f64 scores),
+    and the recovery replays the WAL's insert into an index whose
+    fingerprint equals the live one's."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import (QuakeConfig, QuakeIndex, ServingConfig,
+                                  ServingRuntime)
+    from repro_torch.core import serving as srv
+    from repro_torch.faults import index_state_fingerprint
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import scan_topk as st
+    from repro_torch.kernels import scan_topk_indexed as sti
+    from repro_torch.launch import serve
+    k = SERVE_K
+    card = card_line()
+    out = {"card": card, "kernel_checks": {}}
+    checks = out["kernel_checks"]
+    # the months of this path: the workload's operations up to its
+    # ``serve_months``-th query op
+    ops, n_q = [], 0
+    for op in wl.operations:
+        if n_q == args.serve_months:
+            break
+        ops.append(op)
+        n_q += op.kind == "query"
+    wl = dataclasses.replace(wl, operations=ops)
+    wal = tempfile.mkdtemp(prefix="quake_wal_")
+    scfg = ServingConfig(k=k, recall_target=SERVE_TARGET, flush_size=256,
+                         flush_deadline_ms=5.0, ticker=True,
+                         cache_entries=4096, metrics=True,
+                         scan_backend="auto", storage_dtype="f32",
+                         planner=SERVE_PLANNER, wal_dir=wal, fsync="batch",
+                         record_admissions=True)
+    cfg = QuakeConfig(metric="ip", recall_target=SERVE_TARGET)
+    # counted on the way: rounds served on the host, the kmeans_assign
+    # launches of each insert burst, and the largest burst's operands
+    host_rounds, insert_kmeans, in_insert, burst = [0], [], [False], {}
+    real_host_scan, real_insert = srv.host_scan_round, QuakeIndex.insert
+    real_assign = ka.kmeans_assign
+
+    def counted_host_scan(*a, **kw):
+        host_rounds[0] += 1
+        return real_host_scan(*a, **kw)
+
+    def counted_insert(self, *a, **kw):
+        before = ka.LAUNCHES.count
+        in_insert[0] = True
+        try:
+            return real_insert(self, *a, **kw)
+        finally:
+            in_insert[0] = False
+            insert_kmeans.append(ka.LAUNCHES.count - before)
+
+    def captured_assign(xs, cents, aux):
+        size = int(xs.shape[0]) * int(cents.shape[0])
+        if in_insert[0] and size > burst.get("size", 0):
+            burst.update(size=size, args=(xs.clone(), cents.clone(),
+                                          aux.clone()))
+        return real_assign(xs, cents, aux)
+
+    start_path()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with patched((srv, "host_scan_round", counted_host_scan),
+                 (QuakeIndex, "insert", counted_insert),
+                 (ka, "kmeans_assign", captured_assign)):
+        summary = serve.replay_runtime(wl, cfg, scfg, verbose=False,
+                                       device=dev, gt_device=dev)
+    out["replay_s"] = time.perf_counter() - t
+    out["replay_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = end_path("serving", ())
+    rt, index = summary["runtime"], summary["index"]
+    st_ = summary["stats"]
+    lat = np.asarray(summary["latencies_s"], dtype=np.float64)
+    res = list(rt.results.values())
+    rider_cells = sum(r.rounds for r in res)
+    dstats = st_["durability"]
+    n_queries, query_s = summary["n_queries"], summary["query_s"]
+    stall_s = summary["query_maintenance_s"]
+    durability_s = dstats["wal_append_s"] + dstats["checkpoint_s"]
+    out.update(
+        months=len(summary["recalls"]), queries=n_queries,
+        recall_per_month=summary["recalls"],
+        recall=float(np.mean(summary["recalls"])),
+        p50_latency_ms=float(np.percentile(lat, 50)) * 1e3,
+        p99_latency_ms=float(np.percentile(lat, 99)) * 1e3,
+        serve_s=summary["serve_s"], query_s=query_s,
+        qps=n_queries / query_s,
+        query_maintenance_s=stall_s,
+        search_s=query_s - stall_s,
+        search_qps=n_queries / (query_s - stall_s),
+        rounds=st_["rounds_run"], admitted_batches=st_["admitted_batches"],
+        riders_per_round=rider_cells / max(st_["rounds_run"], 1),
+        partitions_streamed=st_["partitions_streamed"],
+        riding_savings=st_["riding_savings"],
+        cache_hits=st_["cache_hits"],
+        cache_hit_rate=st_["cache_hits"] / max(st_["queries_submitted"], 1),
+        maintenance_passes=st_["maintenance_runs"],
+        maintenance_reasons=st_["maintenance_reasons"],
+        maintenance_s=rt.maintenance.snapshot()["pass_s"],
+        maintenance_history=rt.maintenance.snapshot()["history"],
+        partitions=index.num_partitions, vectors=index.num_vectors,
+        wal_bytes=dstats["wal_bytes_written"],
+        wal_appends=dstats["wal_appends"],
+        checkpoints=dstats["checkpoints_written"],
+        partitions_written=dstats["partitions_written"],
+        partitions_linked=dstats["partitions_linked"],
+        wal_s=dstats["wal_append_s"], checkpoint_s=dstats["checkpoint_s"],
+        attach_s=dstats["attach_s"], durability_s=durability_s,
+        durability_overhead=durability_s / summary["serve_s"],
+        status_counts=st_["status_counts"], scan_faults=st_["scan_faults"],
+        host_rounds=host_rounds[0], insert_kmeans_launches=insert_kmeans,
+        calibration=summary.get("calibration"))
+    print(f"serving [{card}]: {out['queries']} queries over {out['months']} "
+          f"months, {out['vectors']} vectors in {out['partitions']} "
+          f"partitions at the end; replay {out['replay_s']:.1f} s, peak "
+          f"device memory {out['replay_peak_gb']:.2f} GB")
+    print(f"serving [{card}]: recall@{k} per month "
+          + " ".join(f"{r:.4f}" for r in out["recall_per_month"])
+          + f"; overall {out['recall']!r}")
+    per_month = lat[:len(lat) // out["months"] * out["months"]].reshape(
+        out["months"], -1) * 1e3
+    out["latency_ms_per_month"] = [
+        {"p50": float(np.percentile(m, 50)), "p99": float(np.percentile(m, 99)),
+         "max": float(m.max())} for m in per_month]
+    print(f"serving [{card}]: submit-to-result latency p50 "
+          f"{out['p50_latency_ms']!r} ms, p99 {out['p99_latency_ms']!r} ms; "
+          f"per month p50/p99/max ms "
+          + " ".join(f"{m['p50']:.1f}/{m['p99']:.1f}/{m['max']:.1f}"
+                     for m in out["latency_ms_per_month"]))
+    print(f"serving [{card}]: end to end {out['qps']!r} queries/s (all "
+          f"{n_queries} queries over the {query_s!r} s of query ops, the "
+          f"maintenance and checkpoints inside them included; "
+          f"{out['serve_s']!r} s with writes); per layer, the query ops "
+          f"without the {stall_s!r} s of maintenance passes and "
+          f"checkpoints that ran inside them: {out['search_qps']!r} "
+          f"queries/s over {out['search_s']!r} s")
+    print(f"serving [{card}]: {out['rounds']} rounds for "
+          f"{out['admitted_batches']} admitted batches, "
+          f"{out['riders_per_round']!r} riders a round, riding savings "
+          f"{out['riding_savings']!r}; cache hits {out['cache_hits']} "
+          f"(rate {out['cache_hit_rate']!r})")
+    print(f"serving [{card}]: {out['maintenance_passes']} maintenance passes "
+          f"({', '.join(out['maintenance_reasons']) or 'none'}), seconds "
+          + " ".join(f"{s:.3f}" for s in out["maintenance_s"]))
+    print(f"serving [{card}]: WAL {out['wal_bytes']} bytes in "
+          f"{out['wal_appends']} appends, {out['checkpoints']} checkpoints "
+          f"({out['partitions_written']} partitions written, "
+          f"{out['partitions_linked']} linked); durability "
+          f"{out['durability_s']!r} s (WAL appends {out['wal_s']!r}, "
+          f"checkpoints {out['checkpoint_s']!r}) = "
+          f"{out['durability_overhead']!r} of the serve time; the "
+          f"attach's baseline checkpoint {out['attach_s']!r} s before it")
+    print(f"serving [{card}]: statuses {out['status_counts']}, scan faults "
+          f"{out['scan_faults']}, host rounds {out['host_rounds']}, "
+          f"kmeans_assign launches per insert burst "
+          f"{out['insert_kmeans_launches']}")
+    for name in ("scan_topk_indexed", "scan_topk", "kmeans_assign"):
+        if out["launches"][name] <= 0:
+            fail(f"kernel {name} was not launched on the serving path")
+    n_sub = st_["queries_submitted"]
+    if sum(st_["status_counts"].values()) != n_sub or \
+            len(rt.results) != n_sub:
+        fail(f"serving: {len(rt.results)} results and "
+             f"{sum(st_['status_counts'].values())} terminal statuses for "
+             f"{n_sub} queries")
+    if st_["status_counts"]["OK"] != n_sub or st_["scan_faults"]:
+        fail(f"serving: statuses {st_['status_counts']}, scan faults "
+             f"{st_['scan_faults']} with no injector set")
+    if rt.scheduler.scan_backend != "device" or host_rounds[0]:
+        fail(f"serving: backend {rt.scheduler.scan_backend}, "
+             f"{host_rounds[0]} rounds on the host")
+    if out["launches"]["scan_topk_indexed"] < st_["rounds_run"] or \
+            not st_["rounds_run"]:
+        fail(f"serving: {out['launches']['scan_topk_indexed']} indexed-scan "
+             f"launches for {st_['rounds_run']} device rounds")
+    n_inserts = sum(op.kind == "insert" for op in wl.operations)
+    if len(insert_kmeans) != n_inserts or min(insert_kmeans, default=0) < 1:
+        fail(f"serving: kmeans_assign launches per insert burst "
+             f"{insert_kmeans} for {n_inserts} bursts")
+
+    # the assignment of the largest insert burst, against its plain version
+    if "args" not in burst:
+        fail("serving: no insert burst's assignment was captured")
+    xs_b, c_b, aux_b = burst.pop("args")
+    err, tol, _ = hold_assign(
+        ka, f"kmeans_assign at the largest serving insert burst (N "
+        f"{xs_b.shape[0]}, C {c_b.shape[0]})", xs_b, c_b, aux_b)
+    checks["kmeans_assign"] = {"max_abs_err": err, "tol": tol, "shape": {
+        "N": int(xs_b.shape[0]), "C": int(c_b.shape[0]),
+        "d": int(xs_b.shape[1])}}
+    print(f"kmeans_assign at the largest serving insert burst: err "
+          f"{err:.3g} (tol {tol:.3g})")
+    del xs_b, c_b, aux_b
+
+    # the queries admitted after the last write, replayed single-threaded
+    # from the admission log through both backends; qid i is the i-th
+    # query submitted, so the workload's query ops give each qid's vector
+    allq = np.concatenate([op.queries for op in wl.operations
+                           if op.kind == "query"]).astype(np.float32)
+    if len(allq) != n_sub:
+        fail(f"serving: {len(allq)} workload queries, {n_sub} submitted")
+    log = rt.admission_log()
+    last = max(i for i, e in enumerate(log) if e[0] != "q") \
+        if any(e[0] != "q" for e in log) else -1
+    groups_q = [list(e[1]) for e in log[last + 1:] if e[0] == "q"]
+    order = [qid for g in groups_q for qid in g]
+    qs = allq[order]
+    pos = {qid: i for i, qid in enumerate(order)}
+    groups = [[pos[qid] for qid in g] for g in groups_q]
+    # the device leg's rounds and centroid passes are captured and held
+    # against the plain versions while its snapshot is still alive
+    f32_calls, dense = [], {}
+    real_dense = st.scan_topk
+
+    def captured_dense(queries, xs, valid=None, **kw):
+        size = int(queries.shape[0]) * int(xs.shape[0])
+        if size > dense.get("size", 0):
+            dense.update(size=size, kw=dict(kw), args=(
+                queries.clone(), xs.clone(),
+                None if valid is None else valid.clone()))
+        return real_dense(queries, xs, valid, **kw)
+
+    def hold_device_rounds():
+        checks["scan_topk_indexed"] = hold_rounds(
+            "scan_topk_indexed", f32_calls, sti.scan_topk_indexed_cuda,
+            sti.scan_topk_indexed_plain, exact=False)
+        f32_calls.clear()
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    with patched((sti, "scan_topk_indexed", capture_rounds(
+            sti.scan_topk_indexed, f32_calls, 1, {1, 2},
+            SERVE_CHECK_ROUNDS)), (st, "scan_topk", captured_dense)):
+        agree = serving_agreement(index, qs, groups, k,
+                                  after_device=hold_device_rounds)
+    out["agreement_s"] = time.perf_counter() - t
+    if "args" not in dense:
+        fail("serving: no centroid pass was captured")
+    dq, dx, dv = dense.pop("args")
+    dk, ik = st.scan_topk_cuda(dq, dx, dv, **dense["kw"])
+    dp, ip_ = st.scan_topk_plain(dq, dx, dv, **dense["kw"])
+    err, tol = compare_topk(
+        f"scan_topk at the largest serving centroid pass (Q {dq.shape[0]}, "
+        f"N {dx.shape[0]}, k_pad {dense['kw']['k_pad']})", dk, ik, dp, ip_)
+    checks["scan_topk"] = {"max_abs_err": err, "tol": tol, "shape": {
+        "Q": int(dq.shape[0]), "N": int(dx.shape[0]), "d": int(dx.shape[1]),
+        "k_pad": dense["kw"]["k_pad"]}}
+    del dq, dx, dv, dk, ik, dp, ip_
+    (res_d, rounds_d, launch_d), (res_h, _, launch_h) = \
+        agree["device"], agree["host"]
+    strict = ties = 0
+    for i, (a, b) in enumerate(zip(res_d, res_h)):
+        if a.status != "OK" or b.status != "OK" or a.nprobe != b.nprobe:
+            fail(f"serving agreement: query {i} statuses {a.status}/"
+                 f"{b.status}, nprobe {a.nprobe}/{b.nprobe}")
+        sa, sb = set(a.ids.tolist()), set(b.ids.tolist())
+        if sa == sb:
+            continue
+        strict += 1
+        # the k-th distance: the worst exact distance of either list
+        kth = max(float(exact_ip(index, qs[i], a.ids).max()),
+                  float(exact_ip(index, qs[i], b.ids).max()))
+        tol = 2 * (SERVE_TIE_REL * abs(kth) + SERVE_TIE_ABS)
+        diff = sorted(sa ^ sb)
+        ed = exact_ip(index, qs[i], diff)
+        if (np.abs(ed - kth) > tol).any():
+            fail(f"serving agreement: query {i}: ids {sorted(sa ^ sb)} "
+                 f"differ away from the k-th distance {kth!r} "
+                 f"(exact {ed.tolist()})")
+        ties += 1
+    if launch_d < rounds_d or launch_h:
+        fail(f"serving agreement: device launches {launch_d} for "
+             f"{rounds_d} rounds, host launches {launch_h}")
+    out["agreement"] = {"queries": len(order), "groups": len(groups),
+                        "differing_sets": strict, "at_near_ties": ties}
+    print(f"serving [{card}]: the {len(order)} queries after the last "
+          f"write, in "
+          f"{len(groups)} admission groups replayed through both backends: "
+          f"{strict} id sets differ, all at near-ties of the k-th "
+          f"distance ({out['agreement_s']:.1f} s)")
+
+    # one warm flush under torch.profiler: the device's idle share
+    prof_rt = ServingRuntime(index, ServingConfig(
+        k=k, recall_target=SERVE_TARGET, flush_size=10 ** 9, ticker=False,
+        planner=SERVE_PLANNER, record_stats=False, maint_min_ops=10 ** 9,
+        maint_max_ops=None))
+    q256 = qs[:256]
+
+    def one_flush():
+        prof_rt.submit_batch(q256)
+        prof_rt.drain()
+    out["profile_flush"] = profile_call(one_flush, "serving_flush")
+    prof_rt.close()
+
+    # those queries at int8 storage: the q8 kernel serves the rounds
+    start_path()
+    rt8 = ServingRuntime(index, ServingConfig(
+        k=k, recall_target=SERVE_TARGET, flush_size=256, ticker=False,
+        storage_dtype="int8", planner=SERVE_PLANNER, record_stats=False,
+        maint_min_ops=10 ** 9, maint_max_ops=None))
+    q8_calls = []
+    t = time.perf_counter()
+    with patched((sti, "scan_topk_indexed_q8", capture_rounds(
+            sti.scan_topk_indexed_q8, q8_calls, 2, {2, 3, 6},
+            SERVE_CHECK_ROUNDS))):
+        qids = rt8.submit_batch(qs)
+        rt8.drain()
+    out["int8_s"] = time.perf_counter() - t
+    st8 = rt8.stats()
+    res8 = [rt8.result(i) for i in qids]
+    out["int8_launches"] = end_path("serving_int8", ("scan_topk_indexed_q8",))
+    checks["scan_topk_indexed_q8"] = hold_rounds(
+        "scan_topk_indexed_q8", q8_calls, sti.scan_topk_indexed_q8_cuda,
+        sti.scan_topk_indexed_q8_plain, exact=True)
+    del q8_calls
+    rt8.close()
+    torch.cuda.empty_cache()
+    ov = overlap(np.stack([r.ids for r in res8]),
+                 np.stack([r.ids for r in res_d]))
+    out["int8"] = {"rounds": st8["rounds_run"], "overlap_f32": ov,
+                   "statuses": st8["status_counts"]}
+    print(f"serving [{card}]: int8: {len(qids)} queries, "
+          f"{st8['rounds_run']} rounds, "
+          f"{out['int8_launches']['scan_topk_indexed_q8']} q8 launches, ids "
+          f"overlap the f32 backend's by {ov!r} ({out['int8_s']:.1f} s)")
+    if out["int8_launches"]["scan_topk_indexed_q8"] < st8["rounds_run"] \
+            or not st8["rounds_run"]:
+        fail("serving: int8 storage did not launch the q8 kernel each "
+             "round")
+    if st8["status_counts"]["OK"] != len(qids):
+        fail(f"serving: int8 statuses {st8['status_counts']}")
+    if ov < INT8_OVERLAP:
+        fail(f"serving: int8 overlaps f32 by {ov:.4f} < {INT8_OVERLAP}")
+
+    # one more insert burst after the last checkpoint (the served run's
+    # last maintenance pass checkpointed after its last insert): fresh
+    # ids, rows of the data with seeded noise, through a runtime
+    # re-attached to the WAL directory (its attach writes a baseline
+    # checkpoint); then recovery on the card must replay that insert
+    # from the WAL and land on the live fingerprint
+    rng = np.random.default_rng(args.seed + 7)
+    data = wl.dataset.vectors
+    n_new = args.insert
+    new_x = (data[rng.integers(0, len(data), n_new)]
+             + 0.01 * rng.standard_normal((n_new, data.shape[1]))
+             ).astype(np.float32)
+    new_ids = np.arange(len(data), len(data) + n_new, dtype=np.int64)
+    rt_w = ServingRuntime(index, ServingConfig(
+        k=k, ticker=False, wal_dir=wal, fsync="batch", record_stats=False,
+        metrics=False, maint_min_ops=10 ** 9, maint_max_ops=None))
+    rt_w.submit_insert(new_x, new_ids)
+    rt_w.close()
+    live = index_state_fingerprint(index)
+    t = time.perf_counter()
+    rt2 = ServingRuntime.recover(wal, ServingConfig(k=k, ticker=False),
+                                 device=dev)
+    out["recovery_s"] = time.perf_counter() - t
+    rep = rt2.recovery_report
+    out["recovery"] = dataclasses.asdict(rep)
+    got = index_state_fingerprint(rt2.index)
+    n_rec = rt2.index.num_vectors
+    rt2.close()
+    del rt2
+    print(f"serving [{card}]: recovered generation {rep.generation} + "
+          f"{rep.records_replayed} WAL records ({rep.inserts_replayed} "
+          f"inserts, {n_new} vectors) to {n_rec} vectors in "
+          f"{out['recovery_s']!r} s (with the re-attach's baseline "
+          f"checkpoint); fingerprint "
+          f"{'equals' if got == live else 'DIFFERS FROM'} the live one")
+    if rep.inserts_replayed < 1:
+        fail("serving: the recovery replayed no insert from the WAL")
+    if got != live:
+        fail("serving: the recovered index's fingerprint differs from the "
+             "live index's")
+    shutil.rmtree(wal, ignore_errors=True)
+    return out
+
+
+def hold_assign(ka, name, xs, cents, aux):
+    """Hold ``kmeans_assign`` against its plain version on (xs, cents,
+    aux): every minimum within TOL_REL * |d| + TOL_ABS, and the same
+    centroid wherever the two nearest lie more than twice that apart.
+    Returns (largest |diff|, largest tolerance, the plain assignment)."""
+    import torch
+    ak, dk = ka.kmeans_assign_cuda(xs, cents, aux)
+    ap, dp = ka.kmeans_assign_plain(xs, cents, aux)
+    tol_x = TOL_REL * dp.abs() + TOL_ABS
+    err, tol = float((dk - dp).abs().max()), float(tol_x.max())
+    if bool(((dk - dp).abs() > tol_x).any()):
+        fail(f"{name}: minima beyond their tolerance, max |diff| {err:.3g}")
+    if cents.shape[0] > 1:
+        dist = aux[None] - 2.0 * (xs @ cents.T)
+        two = torch.topk(dist, 2, dim=1, largest=False).values
+        clear = (two[:, 1] - two[:, 0]) > 2 * tol_x
+        if bool(((ak != ap) & clear).any()):
+            fail(f"{name}: assignments differ away from ties")
+    return err, tol, ap
 
 
 def check_close(name, got, ref, rel, abs_):
@@ -1488,11 +2062,16 @@ def run_lm(args, dev, start_path, end_path):
     f32_ms = cuda_ms(lambda: fa.flash_attention_cuda(q32, k32, v32,
                                                      causal=True))
     f32_bound, f32_by = flash_bound(2, 512, 512, h, kh, dh, True, 4)
+    views32 = [x.transpose(1, 2) for x in (q32, k32, v32)]
+    f32_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        *views32, is_causal=True, enable_gqa=True))
     f32_row = {"shape": {"B": 2, "S": 512, "H": h, "KH": kh, "D": dh},
-               "ms": f32_ms, "bound_ms": f32_bound, "bound_by": f32_by}
-    print(f"flash_attention f32 kernel: {f32_ms:.3f} ms at "
-          f"{(2, 512, h, kh, dh)} (bound {f32_bound:.3f} ms)")
-    del captured, q, k, v, views, q32, k32, v32
+               "ms": f32_ms, "bound_ms": f32_bound, "bound_by": f32_by,
+               "library_ms": f32_lib_ms}
+    print(f"flash_attention f32 kernel: {f32_ms:.4f} ms at "
+          f"{(2, 512, h, kh, dh)} (library {f32_lib_ms:.4f} ms, bound "
+          f"{f32_bound:.4f} ms)")
+    del captured, q, k, v, views, q32, k32, v32, views32
     torch.cuda.empty_cache()
 
     # -- one request at LM_TIME_LEN tokens, one layer ----------------------

@@ -481,6 +481,30 @@ class QuakeIndex:
         return removed
 
     # ------------------------------------------------------------------
+    # Durability (core/durability.py)
+    # ------------------------------------------------------------------
+
+    def save(self, root: str) -> dict:
+        """Durable save: a full atomic checkpoint under ``root`` (the next
+        free generation, CRC-manifested, fingerprinted), in the JAX
+        package's byte format.  Returns the manifest.  ``root`` may
+        already hold a WAL and older generations; the new checkpoint
+        supersedes them."""
+        from .durability import save_index  # late: avoid import cycle
+        return save_index(self, root)
+
+    @classmethod
+    def load(cls, root: str, device="cuda") -> "QuakeIndex":
+        """Load the newest valid checkpoint under ``root``, replay any WAL
+        suffix and verify the stored fingerprint
+        (``durability.recover_index``); the index lives on ``device``.
+        Raises ``durability.RecoveryError`` when nothing valid
+        survives."""
+        from .durability import recover_index  # late: avoid import cycle
+        idx, _report = recover_index(root, device=device)
+        return idx
+
+    # ------------------------------------------------------------------
     # Introspection
     # ------------------------------------------------------------------
 

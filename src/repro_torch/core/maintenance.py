@@ -134,6 +134,11 @@ class Maintainer:
         self.index = index
         self.lam = lam or LatencyModel(dim=index.dim)
         self.policy = policy or MaintenancePolicy()
+        # optional faults.FaultInjector: when set, every committed split
+        # or merge is an arrival at the "maintenance" site, so a chaos
+        # run crashes the pass after the index has mutated; the serving
+        # runtime's checkpoint/rollback makes that survivable
+        self.faults = None
 
     # ------------------------------------------------------------------
     # Cost accounting
@@ -312,6 +317,8 @@ class Maintainer:
         # ----- Stage 3: commit -----
         new_j = level.num_partitions
         self._apply_split(l, j, c2, a2)
+        if self.faults is not None:
+            self.faults.check("maintenance")   # crash mid-recluster
         touched.update({j, new_j})
         if self.policy.use_refinement:
             c0 = self.total_cost()
@@ -455,6 +462,8 @@ class Maintainer:
         # ----- Stage 3: commit -----
         self._apply_merge(l, j, recv, extra_hits=extra_freq,
                           recv_ids=recv_ids)
+        if self.faults is not None:
+            self.faults.check("maintenance")   # crash mid-recluster
         touched.update(recv_ids.tolist())
         touched.add(j)
         return True

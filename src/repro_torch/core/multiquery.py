@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import sanitize
 from ..kernels import ops
 from ..kernels.ref import MASK_DIST
 from . import aps as aps_mod
@@ -183,11 +184,13 @@ def _calibrate_kth_batched(index: QuakeIndex, q: np.ndarray, k: int,
 class PlannerCache:
     """Snapshot-fingerprinted planner state: cached centroid norms and
     calibrated APS radii, invalidated by the journal fingerprint; cached
-    radii also expire after ``radius_ttl`` reuses (query drift)."""
+    radii also expire after ``radius_ttl`` reuses (query drift); the TTL
+    defaults to ``QuakeConfig.planner_radius_ttl``."""
 
-    def __init__(self, index: QuakeIndex):
+    def __init__(self, index: QuakeIndex, radius_ttl: Optional[int] = None):
         self.index = index
-        self.radius_ttl = index.config.planner_radius_ttl
+        self.radius_ttl = index.config.planner_radius_ttl \
+            if radius_ttl is None else radius_ttl
         self._key = None
         self._cent_norms = None
         self._kth_cache = {}     # (key, k, target) -> [kth_med, uses]
@@ -531,6 +534,7 @@ def _pack_plan(sel_q: torch.Tensor, qvalid: torch.Tensor,
 def plan_batch(index: QuakeIndex, q: np.ndarray, k: int,
                nprobe: Optional[int] = None,
                recall_target: Optional[float] = None,
+               u_bucket: int = U_BUCKET,
                union_cap: Optional[int] = None,
                planner: str = "vectorized",
                cent_norms: Optional[np.ndarray] = None,
@@ -539,7 +543,7 @@ def plan_batch(index: QuakeIndex, q: np.ndarray, k: int,
     per-query mask.  ``planner`` is "vectorized" (host), "fused"
     (device) or "loop" (the per-query baseline); ``union_cap`` bounds the
     distinct partitions scanned (frequency-ranked truncation).  The union
-    width is rounded up to a multiple of ``U_BUCKET`` with inert slots,
+    width is rounded up to a multiple of ``u_bucket`` with inert slots,
     as in the JAX package, so both give the same plan."""
     b = q.shape[0]
     p = index.levels[0].num_partitions
@@ -587,7 +591,7 @@ def plan_batch(index: QuakeIndex, q: np.ndarray, k: int,
     else:
         n_real = n_hits
     n_real = max(n_real, 1)
-    u_pad = max(-(-n_real // U_BUCKET) * U_BUCKET, 1)
+    u_pad = max(-(-n_real // u_bucket) * u_bucket, 1)
     sel_d, qmask_d = _pack_plan(
         torch.as_tensor(sel_q, device=dev),
         torch.as_tensor(qvalid, device=dev),
@@ -643,7 +647,8 @@ def _round_windows(n_max: int, rounds: Optional[int] = None):
 
 def run_round_loop(plan: RoundPlan, k: int, target: float, table,
                    rho_fn, scan_round, *, rounds: Optional[int] = None,
-                   k_keep: Optional[int] = None, device="cpu"):
+                   k_keep: Optional[int] = None, device="cpu",
+                   deadline_s: Optional[float] = None, clock=None):
     """Algorithm 2 round driver.
 
     Each round every live query advances through the next window of its
@@ -655,9 +660,13 @@ def run_round_loop(plan: RoundPlan, k: int, target: float, table,
     keeps the running top-k on ``device`` (``ops.topk_merge``), pulls only
     the k-th distances each round, re-estimates APS recall of the live
     rows from the running radius and retires rows that cleared the
-    target; rows whose top-k is not full never exit.  The trace keeps the
-    reference's pinned schema; its deadline fields stay False / 0 until
-    the serving slice brings per-query deadlines.
+    target; rows whose top-k is not full never exit.
+
+    ``deadline_s`` is a budget for the whole loop, read on ``clock``
+    (default ``time.perf_counter``): once it is spent the loop stops at
+    the end of the current round (at least one round always runs) and
+    the live rows keep their running top-k; ``trace["budget_expired"]``
+    and ``trace["timed_out_rows"]`` say that it happened.
 
     Returns (top dists, top ids — device, ascending — nprobe (B,),
     recall_est (B,), rounds executed, per-round trace, totals).
@@ -684,9 +693,17 @@ def run_round_loop(plan: RoundPlan, k: int, target: float, table,
              "round_vectors": [], "round_comparisons": [],
              "round_kth": [], "round_wall_s": [],
              "budget_expired": False, "timed_out_rows": 0}
+    clock = clock or time.perf_counter
+    t0 = clock()
     n_rounds = 0
     for c0, c1 in wins:
         if not live.any():
+            break
+        if (deadline_s is not None and n_rounds > 0
+                and clock() - t0 >= deadline_s):
+            # budget spent: the live rows keep their running top-k
+            trace["budget_expired"] = True
+            trace["timed_out_rows"] = int(live.sum())
             break
         avail = live[:, None] & within & ~scanned
         base = avail & (cols >= c0) & (cols < c1)
@@ -698,7 +715,7 @@ def run_round_loop(plan: RoundPlan, k: int, target: float, table,
         take = avail & in_union[plan.seq]
         scanned |= take
         n_rounds += 1
-        t_round = time.perf_counter()
+        t_round = clock()
         trace["round_live"].append(int(live.sum()))
         d, i, st = scan_round(take, kept)
         td, ti = ops.topk_merge(td, ti, d, i, k_keep)
@@ -718,7 +735,7 @@ def run_round_loop(plan: RoundPlan, k: int, target: float, table,
         live[rows[full_heap & (r >= target)]] = False
         trace["round_kth"].append(
             float(np.median(kth[full_heap])) if full_heap.any() else None)
-        trace["round_wall_s"].append(time.perf_counter() - t_round)
+        trace["round_wall_s"].append(clock() - t_round)
     stats = {k_: int(np.sum(v)) for k_, v in
              (("partitions", trace["round_partitions"]),
               ("vectors", trace["round_vectors"]),
@@ -756,19 +773,40 @@ class BatchedSearchExecutor:
     rebuild).  With ``int8_rerank`` the int8 scan keeps the top-2k and
     re-ranks them exactly from a compact host f32 mirror of the level-0
     rows.
+
+    ``impl`` is the scan implementation every search uses unless it names
+    its own, ``u_bucket`` the union-width padding step, ``rounds`` the
+    default round budget of APS searches (1 = one fixed-plan scan),
+    ``union_cap`` the default union cap, ``headroom`` overrides the
+    config's slot slack, and
+    ``part_bucket`` pads the snapshot's partition count (sticky, with 25%
+    growth slack) so a few maintenance splits keep the scan operands'
+    shape; serving runtimes set 32.
     """
 
-    def __init__(self, index: QuakeIndex, storage_dtype: str = "f32",
-                 planner: str = "vectorized", int8_rerank: bool = True):
+    def __init__(self, index: QuakeIndex, impl: str = "auto",
+                 u_bucket: int = U_BUCKET, headroom: Optional[float] = None,
+                 storage_dtype: str = "f32",
+                 union_cap: Optional[int] = None,
+                 planner: str = "vectorized", int8_rerank: bool = True,
+                 rounds: Optional[int] = None, part_bucket: int = 1):
         if storage_dtype not in STORAGE_DTYPES:
             raise ValueError(f"storage_dtype must be one of "
                              f"{STORAGE_DTYPES}, got {storage_dtype!r}")
         if planner not in ("vectorized", "fused", "loop"):
             raise ValueError(f"unknown planner {planner!r}")
         self.index = index
+        self.impl = impl
+        self.u_bucket = u_bucket
+        self.part_bucket = max(part_bucket, 1)
         self.storage_dtype = storage_dtype
         self.planner = planner
+        self.rounds = rounds
         self.int8_rerank = int8_rerank
+        cfg = index.config
+        self.union_cap = cfg.union_cap if union_cap is None else union_cap
+        self.headroom = cfg.snapshot_headroom if headroom is None \
+            else headroom
         self._mirror = None      # int8 re-rank: level-0 rows (N, d) host
         self._mirror_base = None  # (P,) first mirror row of each partition
         self._snap = None
@@ -797,13 +835,22 @@ class BatchedSearchExecutor:
         sticky: a rebuild never shrinks it below the previous one's."""
         lvl0 = self.index.levels[0]
         max_sz = int(max((len(v) for v in lvl0.vectors), default=0))
-        headroom = max(self.index.config.snapshot_headroom, 1.0)
-        cap = max(int(math.ceil(max_sz * headroom)), 1)
+        cap = max(int(math.ceil(max_sz * max(self.headroom, 1.0))), 1)
         if self._snap is not None:
             cap = max(cap, int(self._snap.capacity))
+        pad_to = self.part_bucket
+        if self.part_bucket > 1:
+            # sticky too, with 25% growth slack; an absolute target that
+            # covers the live count (from_index rounds up to a multiple)
+            pad_to = (-(-int(lvl0.num_partitions * 1.25)
+                        // self.part_bucket) * self.part_bucket)
+            if self._snap is not None:
+                pad_to = max(pad_to, int(self._snap.num_partitions))
+            pad_to = max(pad_to, lvl0.num_partitions)
         self._snap = None        # drop the old tensors before the new ones
         snap = IndexSnapshot.from_index(
-            self.index, capacity=cap, int8=self.storage_dtype == "int8")
+            self.index, capacity=cap, int8=self.storage_dtype == "int8",
+            pad_partitions_to=pad_to)
         self._valid = snap.ids >= 0
         self._flat_ids = snap.ids.cpu().numpy().reshape(-1)
         self._sizes = snap.sizes.cpu().numpy()
@@ -862,6 +909,13 @@ class BatchedSearchExecutor:
         self.delta_refreshes += 1
         return True
 
+    def release(self) -> None:
+        """Free the device snapshot and its mask; the next search
+        rebuilds them from the index."""
+        self._snap = None
+        self._valid = None
+        self._key = None
+
     def snapshot(self):
         if self._snap is None:
             return self.refresh()
@@ -903,13 +957,14 @@ class BatchedSearchExecutor:
     def search(self, queries: np.ndarray, k: int,
                nprobe: Optional[int] = None,
                recall_target: Optional[float] = None,
-               impl: str = "auto",
+               impl: Optional[str] = None,
                union_cap: Optional[int] = None,
                rounds: Optional[int] = None) -> BatchResult:
         """One batch: APS probe rounds (Algorithm 2) unless ``nprobe`` pins
         the probes, ``rounds=1`` asks for one fixed-plan scan, the loop
-        planner is used, or a union cap (default ``config.union_cap``)
-        bounds the plan."""
+        planner is used, or a union cap (default the executor's) bounds
+        the plan.  ``impl``, ``rounds`` and ``union_cap`` default to the
+        executor's."""
         q = np.ascontiguousarray(queries, dtype=np.float32)
         if q.ndim == 1:
             q = q[None, :]
@@ -919,10 +974,11 @@ class BatchedSearchExecutor:
                                nprobe=np.zeros(0, dtype=np.int64),
                                recall_estimate=np.zeros(0))
         snap = self.snapshot()
+        impl = impl or self.impl
+        rounds = self.rounds if rounds is None else rounds
         if rounds is not None and rounds < 1:
             raise ValueError(f"rounds must be >= 1 or None, got {rounds}")
-        cap = self.index.config.union_cap if union_cap is None \
-            else union_cap
+        cap = self.union_cap if union_cap is None else union_cap
         # early-exit rounds need APS: not nprobe-pinned, not rounds=1,
         # not the loop planner, not union-capped (the cap is plan-level)
         if nprobe is None and rounds != 1 and self.planner != "loop" \
@@ -933,7 +989,7 @@ class BatchedSearchExecutor:
                                        snap=snap)
         plan = plan_batch(self.index, q, k, nprobe=nprobe,
                           recall_target=recall_target,
-                          union_cap=cap,
+                          u_bucket=self.u_bucket, union_cap=cap,
                           planner=self.planner,
                           cent_norms=self._cent_norms,
                           cache=self.planner_cache)
@@ -973,22 +1029,33 @@ class BatchedSearchExecutor:
 
     def scan_probe_round(self, q_dev, seq_dev, take: np.ndarray,
                          kept: np.ndarray, k_keep: int, snap=None,
-                         impl: str = "auto",
+                         impl: Optional[str] = None, u_pow2: bool = False,
                          seq_host: Optional[np.ndarray] = None):
-        """One packed partition-union scan for a probe round: ``q_dev``
-        (B, d) queries, ``seq_dev`` (B, M) scan-ordered candidates on the
-        device, ``take`` (B, M) the cells consumed this round, ``kept``
-        the round's distinct partitions.  Returns device ``(dists
-        (B, k_keep), flat idx, stats)`` (``run_round_loop``'s contract).
-        With ``seq_host`` the comparison count is exact."""
+        """One packed partition-union scan for a probe round over any row
+        set: ``q_dev`` (B, d) queries, ``seq_dev`` (B, M) scan-ordered
+        candidates on the device, ``take`` (B, M) the cells consumed this
+        round, ``kept`` the round's distinct partitions.  Returns device
+        ``(dists (B, k_keep), flat idx, stats)`` (``run_round_loop``'s
+        contract).  It serves both round drivers: ``_search_rounds`` and
+        the serving scheduler's riding rounds, whose row set changes
+        between rounds.  ``u_pow2`` pads the union on a geometric ladder
+        (``u_bucket * 2^i``) instead of linear ``u_bucket`` steps.  With
+        ``seq_host`` the comparison count is exact."""
         snap = self.snapshot() if snap is None else snap
-        p = int(snap.num_partitions)
+        # the snapshot's (padded) partition count: stable across rebuilds
+        # when part_bucket > 1
+        p = max(self.index.levels[0].num_partitions,
+                int(snap.num_partitions))
         prio0 = torch.zeros(p, dtype=torch.int32, device=self.device)
         n_real = max(len(kept), 1)
-        u_pad = max(-(-n_real // U_BUCKET) * U_BUCKET, 1)
+        u_pad = max(-(-n_real // self.u_bucket) * self.u_bucket, 1)
+        if u_pow2:
+            u_pad = self.u_bucket * ops._next_pow2(
+                -(-n_real // self.u_bucket))
+        with sanitize.allow_sync("explicit upload of the round's take mask"):
+            take_dev = torch.as_tensor(take, device=self.device)
         sel_dev, qmask_dev = ops.pack_round_masked(
-            seq_dev, torch.as_tensor(take, device=self.device), prio0,
-            n_real, p=p, u_pad=u_pad)
+            seq_dev, take_dev, prio0, n_real, p=p, u_pad=u_pad)
         sizes_kept = self._sizes[np.asarray(kept, dtype=np.int64)]
         vectors = int(sizes_kept.sum())
         if seq_host is not None:
@@ -997,6 +1064,7 @@ class BatchedSearchExecutor:
             comparisons = vectors
         st = {"partitions": int(n_real), "vectors": vectors,
               "comparisons": comparisons}
+        impl = impl or self.impl
         if snap.scales is not None:          # int8 residual codes
             d, flat = ops.scan_selected_topk_q8(
                 q_dev, snap.data, snap.scales, self._valid, sel_dev,
@@ -1009,7 +1077,7 @@ class BatchedSearchExecutor:
         return d, flat, st
 
     def _search_rounds(self, q: np.ndarray, k: int, target: float,
-                       rounds: Optional[int], impl: str = "auto",
+                       rounds: Optional[int], impl: Optional[str] = None,
                        snap=None) -> BatchResult:
         """Multi-round early-exit search (Algorithm 2 semantics)."""
         idx = self.index

@@ -84,7 +84,8 @@ class IndexSnapshot:
     @staticmethod
     def from_index(index, capacity: Optional[int] = None,
                    headroom: float = 1.0,
-                   int8: bool = False) -> "IndexSnapshot":
+                   int8: bool = False,
+                   pad_partitions_to: int = 1) -> "IndexSnapshot":
         """Dense snapshot of the base level on the index's device.  Only
         the real rows cross to the device, in one copy, and are scattered
         into the zero-padded tensor there.  ``headroom`` pads the slot
@@ -92,11 +93,18 @@ class IndexSnapshot:
         below the largest partition raises.  With ``int8`` the snapshot
         holds IVF-residual int8 codes and per-slot scales, padded and
         quantized ``Q8_PARTS`` partitions at a time, so no f32 copy of
-        the whole padded snapshot is ever on the device."""
+        the whole padded snapshot is ever on the device.
+        ``pad_partitions_to`` rounds the partition count up to a multiple
+        with empty partitions whose centroids sit far away (1e6), as in
+        the JAX package, so the scan operands keep their shape across a
+        few maintenance splits."""
         dev = index.device
         lvl0 = index.levels[0]
-        p = lvl0.num_partitions
-        sizes = lvl0.sizes().astype(np.int32)
+        p_real = lvl0.num_partitions
+        pad = max(int(pad_partitions_to), 1)
+        p = -(-p_real // pad) * pad
+        sizes = np.zeros(p, dtype=np.int32)
+        sizes[:p_real] = lvl0.sizes()
         if capacity is None:
             s_cap = max(int(math.ceil(int(sizes.max(initial=0))
                                       * max(headroom, 1.0))), 1)
@@ -109,7 +117,7 @@ class IndexSnapshot:
                 f"partition of size {int(sizes.max())}")
         d = index.dim
         rows, vecs, exts = [], [], []
-        for j in range(p):
+        for j in range(p_real):
             s = int(sizes[j])
             if s == 0:
                 continue
@@ -122,9 +130,9 @@ class IndexSnapshot:
             vecs.append(lvl0.vectors[j])
             exts.append(ext.astype(np.int32))
         ids = torch.full((p * s_cap,), -1, dtype=torch.int32, device=dev)
-        centroids = torch.as_tensor(
-            np.ascontiguousarray(lvl0.centroids, dtype=np.float32),
-            device=dev)
+        cents = np.full((p, d), 1e6, dtype=np.float32)
+        cents[:p_real] = lvl0.centroids
+        centroids = torch.as_tensor(cents, device=dev)
         flat = x = None
         if rows:
             flat = torch.as_tensor(np.concatenate(rows), device=dev)

@@ -74,6 +74,14 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_EVENTS = [0]            # libraries loaded by this process
+
+
+def build_events() -> int:
+    """Monotonic count of kernel libraries this process has made ready
+    (built if needed, then loaded): each is a one-time cost that a
+    warmed path never pays again (the sanitizer's build-event counter)."""
+    return _EVENTS[0]
 
 
 class KernelBuildError(RuntimeError):
@@ -169,6 +177,7 @@ def lib(name: str) -> ctypes.CDLL:
         fn.argtypes = [kinds[c] for c in sig]
         fn.restype = ctypes.c_int
     _LIBS[name] = handle
+    _EVENTS[0] += 1
     return handle
 
 

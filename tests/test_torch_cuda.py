@@ -821,3 +821,118 @@ def test_transformer_on_the_card_launches_flash_once_per_layer(dev):
                              torch.full((2,), 70, device=dev))
     assert fa.LAUNCHES.count == before
     assert torch.isfinite(lg2).all()
+
+
+# ---------------------------------------------------------------------------
+# the online serving runtime on the card
+# ---------------------------------------------------------------------------
+
+def _serving_index(dev, n=6000, d=32, p=48):
+    ds = datasets.clustered(n, d, n_clusters=24, seed=0)
+    idx = QuakeIndex.build(ds.vectors, num_partitions=p, kmeans_iters=4,
+                           device=dev)
+    return ds, idx
+
+
+def test_serving_device_backend_matches_host_on_the_card(dev):
+    """``scan_backend="auto"`` on a CUDA index serves every round through
+    the indexed-scan kernel (one launch a round at least); the host
+    backend launches none, and both return the same ids."""
+    from repro_torch.core import ServingConfig, ServingRuntime
+    ds, idx = _serving_index(dev)
+    q = datasets.queries_near(ds, 40, seed=1)
+    res = {}
+    for backend in ("auto", "host"):
+        rt = ServingRuntime(idx, ServingConfig(
+            k=10, flush_size=16, scan_backend=backend,
+            maint_min_ops=10 ** 9))
+        before = sti.LAUNCHES.count
+        qids = rt.submit_batch(q)
+        rt.drain()
+        launches = sti.LAUNCHES.count - before
+        st = rt.stats()
+        if backend == "auto":
+            assert rt.scheduler.scan_backend == "device"
+            assert 0 < st["rounds_run"] <= launches
+        else:
+            assert launches == 0
+        assert st["scan_faults"] == 0
+        res[backend] = [rt.result(i) for i in qids]
+        rt.close()
+    for a, b in zip(res["auto"], res["host"]):
+        assert a.status == b.status == "OK"
+        assert set(a.ids.tolist()) == set(b.ids.tolist())
+
+
+def test_serving_int8_rounds_launch_the_q8_kernel(dev):
+    from repro_torch.core import ServingConfig, ServingRuntime
+    ds, idx = _serving_index(dev)
+    q = datasets.queries_near(ds, 24, seed=2)
+    rt = ServingRuntime(idx, ServingConfig(
+        k=10, flush_size=8, storage_dtype="int8", maint_min_ops=10 ** 9))
+    before = sti.LAUNCHES_Q8.count
+    qids = rt.submit_batch(q)
+    rt.drain()
+    assert sti.LAUNCHES_Q8.count - before >= rt.stats()["rounds_run"] > 0
+    assert {rt.result(i).status for i in qids} == {"OK"}
+    rt.close()
+
+
+def test_serving_recover_on_the_card_matches_live(dev, tmp_path):
+    """Writes, a maintenance pass and queries through a WAL on the card;
+    the recovered index (on the card) has the live one's fingerprint."""
+    from repro_torch.core import ServingConfig, ServingRuntime
+    from repro_torch.faults import index_state_fingerprint
+    ds, idx = _serving_index(dev)
+    cfg = ServingConfig(k=10, flush_size=16, wal_dir=str(tmp_path),
+                        ckpt_every_ops=3, maint_min_ops=10 ** 9)
+    rt = ServingRuntime(idx, cfg)
+    rng = np.random.default_rng(3)
+    for i in range(5):
+        x = (ds.vectors[rng.integers(6000, size=50)]
+             + rng.normal(0, 0.01, (50, 32))).astype(np.float32)
+        rt.submit_insert(x, np.arange(100_000 + 50 * i, 100_050 + 50 * i))
+        if i == 2:
+            rt.submit_delete(np.arange(10 * i, 10 * i + 30))
+            rt.maybe_maintain(force=True)
+        rt.submit_batch(datasets.queries_near(ds, 8, seed=10 + i))
+    rt.drain()
+    live = index_state_fingerprint(idx)
+    rt.close()
+    rt2 = ServingRuntime.recover(str(tmp_path), ServingConfig(k=10),
+                                 device=dev)
+    assert rt2.index.device.type == "cuda"
+    assert index_state_fingerprint(rt2.index) == live
+    assert rt2.recovery_report.fingerprint == live.hex()
+    qid = rt2.submit_query(datasets.queries_near(ds, 1, seed=4)[0])
+    rt2.drain()
+    assert rt2.result(qid).status == "OK"
+    rt2.close()
+
+
+def test_serving_rounds_under_the_sync_guard(dev):
+    """A device round's declared transfers (the uploads and the per-round
+    pull) are its only synchronizing calls: the rounds run under
+    ``set_sync_debug_mode("error")`` and build no kernel library once
+    warm, while an undeclared pull in the guard raises."""
+    from repro_torch import sanitize
+    from repro_torch.core import ServingConfig, ServingRuntime
+    ds, idx = _serving_index(dev)
+    rt = ServingRuntime(idx, ServingConfig(k=10, flush_size=10 ** 6,
+                                           maint_min_ops=10 ** 9))
+    warm = rt.submit_batch(datasets.queries_near(ds, 8, seed=5))
+    rt.drain()
+    qids = rt.submit_batch(datasets.queries_near(ds, 12, seed=6))
+    rt.flush()             # admits (plans on the host) and runs a round
+    assert rt.scheduler.has_active()
+    with sanitize.sanitized() as ev:
+        while rt.scheduler.step():
+            pass
+        sanitize.assert_compile_budget("scan_probe_round.steady", ev.new())
+        with pytest.raises(RuntimeError):
+            torch.ones(2, device=dev).sum().item()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    rt.drain()
+    assert {rt.result(i).status for i in warm + qids} == {"OK"}
+    assert rt.stats()["scan_faults"] == 0
+    rt.close()
