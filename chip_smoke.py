@@ -5,8 +5,9 @@
                           [--wiki-n 1000000] [--months 12]
                           [--serve-months 12]
 
-With no arguments it runs five paths, each with the kernels' launch
-counts set to 0 just before it and read just after:
+With no arguments it runs six paths, each with the kernels' launch
+counts set to 0 just before it and read just after (path 6 runs after
+the kernel checks and before path 3):
 
 1. The main path, the SIFT1M-shaped cell: 1,000,000 clustered synthetic
    vectors of d=128 (L2; a mixture of 8192 Gaussian clusters with sizes
@@ -66,6 +67,29 @@ counts set to 0 just before it and read just after:
    layers 0 and 47's operands and the JAX tests' f32 shapes, and timed
    at one request of ``LM_TIME_LEN`` tokens (prefill_32k's).
 
+6. The sharded engine (``core/distributed.py``) inside a one-rank NCCL
+   process group (``launch/mesh.make_host_mesh``, so every collective is
+   a real NCCL call), on path 1's index after its bursts, at B =
+   ``--batch`` and ``EngineConfig(k, nprobe=32, chunk=2, max_rounds=16,
+   recall_target=0.9)``: ``search_bruteforce`` (the dense kernel over the
+   engine's whole block), ``search_fixed``, ``search_adaptive`` and
+   ``search_batch`` at ``scan_impl="union_cuda"`` in f32, then bf16 and
+   int8 storage, each warmed and timed, with gates: brute force recall
+   against the exact ground truth, ``search_batch`` equal to the
+   executor's, the indexed scans of the timed calls held against their
+   plain versions on their own operands (the whole batch, in blocks of
+   queries), fixed and adaptive against ``"union_torch"`` (the plain
+   oracles) and the ``"gather"`` scan on the first queries, int8
+   distances bit-equal to ``"union_torch"``, a delta refresh after 100
+   inserts and a full rebuild after a structural change.  Then the
+   ``quake-ann`` capacity leg: ``IndexSnapshot.synthetic`` at
+   configs/quake_arch.py's FULL shape (16,384 × 12,288 × 128) in int8
+   storage, ``serve_fixed_1k`` and ``serve_adaptive_1k`` on 1,024 queries
+   of the port's own near seeded centroids, the q8 kernel held bit-equal
+   to its plain version on the first queries' union.  It prints recall,
+   warm wall times, the device's idle share of a warm ``search_fixed`` and
+   ``search_adaptive``, rounds, nprobe and launches per leg.
+
 It then holds each CUDA kernel against its plain PyTorch version at the
 shapes the paths gave it, times both and a one-library-call yardstick,
 profiles one warm ``search_batch``, and prints one JSON line of kernels,
@@ -87,8 +111,10 @@ import argparse
 import contextlib
 import gc
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -133,6 +159,26 @@ SERVE_TIE_REL, SERVE_TIE_ABS = 1e-5, 1e-5
 # per scan, each one whose plain version's gather of the union (its rows
 # in the storage type and widened to f32) fits in this many bytes
 SERVE_CHECK_ROUNDS, SERVE_PLAIN_BYTES = 4, 16e9
+# the sharded engine (path 6): EngineConfig(k, nprobe 32, chunk 2, 16
+# rounds, target 0.9).  The plain-oracle checks take the first
+# ENGINE_CHECK_Q queries (the oracle sorts every (query, union row)
+# distance: seconds a call at B = 1,024), the gather scan the first
+# ENGINE_GATHER_Q (it gathers (B, n_sel, S_cap, d): 85 GB at B = 1,024);
+# adaptive probe counts may differ only where an estimate lies within
+# ENGINE_TARGET_TIE of the target.  The indexed scans of the timed legs
+# are held against their plain versions on their own operands: the
+# search_fixed call, the first ENGINE_HOLD_ROUNDS rounds of
+# search_adaptive and of search_batch, ENGINE_HOLD_Q queries a block
+ENGINE_NPROBE, ENGINE_CHUNK, ENGINE_ROUNDS, ENGINE_TARGET = 32, 2, 16, 0.9
+ENGINE_CHECK_Q, ENGINE_GATHER_Q, ENGINE_TARGET_TIE = 64, 8, 1e-4
+ENGINE_HOLD_ROUNDS, ENGINE_HOLD_Q = 3, 8
+BRUTE_RECALL_MIN = 0.999      # brute force recall@k against exact
+BRUTE_PLAIN_Q = 16            # queries a block of the brute-force plain hold
+# the quake-ann capacity leg: configs/quake_arch.py's FULL and its
+# serve_*_1k cells; recall@k on the first CAP_GT_Q queries, the q8 kernel
+# held on the first CAP_CHECK_Q queries' union
+CAP_P, CAP_S, CAP_D, CAP_K = 16384, 12288, 128, 100
+CAP_B, CAP_NPROBE, CAP_GT_Q, CAP_CHECK_Q = 1024, 64, 64, 8
 
 
 def fail(msg: str) -> None:
@@ -273,11 +319,33 @@ def compare_topk(name, d_k, i_k, d_p, i_p):
     return err, float(tol.max()) if tol.numel() else 0.0
 
 
-def profile_call(fn, what: str = "search_batch",
-                   match: str = "") -> dict:
+def warm_then_time(fn, counters=None, during=contextlib.nullcontext):
+    """Call ``fn`` once to warm it, then once timed (host clock to a
+    synchronize), inside the context ``during()``.  Returns (the timed
+    call's result, its wall ms, the launches it made of each of
+    ``counters``' kernels that it launched)."""
+    import torch
+    fn()
+    counters = counters or {}
+    before = {n: c.count for n, c in counters.items()}
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+    sync()
+    t = time.perf_counter()
+    with during():
+        res = fn()
+    sync()
+    wall = (time.perf_counter() - t) * 1e3
+    return res, wall, {n: c.count - before[n] for n, c in counters.items()
+                       if c.count > before[n]}
+
+
+def profile_call(fn, what: str = "search_batch", match: str = "",
+                 out_dir=OUT_DIR) -> dict:
     """Device busy time of one warm call of ``fn`` under torch.profiler,
     beside its wall time, the kernels that took the most device time, and
-    the device time of the kernels whose name holds ``match``."""
+    the device time of the kernels whose name holds ``match``.  The trace
+    goes to ``out_dir`` (none when it is None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -295,7 +363,8 @@ def profile_call(fn, what: str = "search_batch",
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    prof.export_chrome_trace(str(OUT_DIR / f"{what}_trace.json"))
+    if out_dir is not None:
+        prof.export_chrome_trace(str(Path(out_dir) / f"{what}_trace.json"))
     out = {"wall_ms_profiled": wall_ms,
            "device_busy_ms": busy_ms if rows else None,
            "idle_share": 1.0 - busy_ms / wall_ms if rows else None,
@@ -577,6 +646,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         import numpy as np
+        import torch.distributed as dist
         from repro_torch.core import (BatchedSearchExecutor, QuakeIndex,
                                       get_executor, plan_batch)
         from repro_torch.data import datasets
@@ -1042,7 +1112,37 @@ def main() -> int:
     # ---- where the time of one warm search_batch goes ------------------
     record["profile"] = profile_call(
         lambda: idx.search_batch(q, args.k, recall_target=0.9))
-    del idx, ex, ex8, snap, snap8, valid, plan, sel, qmask, ds, all_x
+
+    # ---- path 6: the sharded engine over a one-rank NCCL mesh -----------
+    # the executor's result the engine's search_batch is held against (its
+    # launches are not the engine path's); a fresh executor, so that its
+    # planner calibrates the APS radius on these queries, as the engine's
+    ex_fresh = BatchedSearchExecutor(idx)
+    r_ex = ex_fresh.search(q3, args.k, recall_target=0.9)
+    del ex_fresh
+    pg_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group("nccl", init_method=f"file://{pg_dir}/init",
+                            world_size=1, rank=0)
+    try:
+        t = time.perf_counter()
+        start_path()
+        record["engine"], brute_row = run_engine(
+            args, idx, q3, gt, r_ex, args.n + 2 * args.insert, dev, counters)
+        del idx, ex, ex8, snap, snap8, valid, plan, sel, qmask, ds, all_x
+        gc.collect()
+        torch.cuda.empty_cache()
+        record["engine"]["capacity"] = run_capacity(args, dev, counters)
+        end_path("engine", ("scan_topk_indexed", "scan_topk_indexed_q8",
+                            "scan_topk", "kmeans_assign"))
+        record["engine"]["path_s"] = time.perf_counter() - t
+        print(f"engine path took {record['engine']['path_s']:.1f} s")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(pg_dir, ignore_errors=True)
+    for row in kernels:
+        if row["name"] == "scan_topk":
+            row["shapes"]["brute_force"] = brute_row
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ---- path 3: the dynamic loop (paper Fig. 4) ------------------------
@@ -1081,6 +1181,21 @@ def main() -> int:
     record["lm"]["path_s"] = time.perf_counter() - t
     print(f"lm path took {record['lm']['path_s']:.1f} s")
     kernels.append(row)
+    checks = record["engine"]["engine_check"]
+    for row in kernels:      # each kernel's launches on the engine path
+        row["engine_launches"] = path_launches["engine"][
+            row["name"].split("[")[0]]
+        # held against the plain version on the engine path's own operands
+        if row["name"] == "scan_topk_indexed":
+            row["engine_check"] = {s_: checks[s_] for s_ in ("f32", "bf16")}
+        elif row["name"] == "scan_topk_indexed_q8":
+            row["engine_check"] = {"int8": checks["int8"]}
+        elif row["name"] == "kmeans_assign":
+            row["engine_check"] = {"insert": checks["kmeans_assign"]}
+        elif row["name"] == "scan_topk":
+            row["engine_check"] = {"bruteforce_f32": {
+                k_: row["shapes"]["brute_force"][k_]
+                for k_ in ("max_abs_err", "tol", "Q", "N", "k_pad")}}
     record.update(kernels=kernels, card=card, path_launches=path_launches,
                   total_s=time.perf_counter() - t_start)
     (OUT_DIR / "record.json").write_text(json.dumps(record, indent=1))
@@ -1092,6 +1207,555 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def uncounted(counters, fn):
+    """``fn()`` with the kernels' launch counts left as they were: the
+    launches of a comparison or a profile are not the path's."""
+    saved = {n: c.count for n, c in counters.items()}
+    try:
+        return fn()
+    finally:
+        for n, c in counters.items():
+            c.count = saved[n]
+
+
+def hold_bit_equal(name, d_k, i_k, d_p, i_p):
+    """int8 results against the plain oracle's: distances bit-equal, ids
+    equal wherever the distance is not exactly tied (with a neighbour in
+    the list, or with the k-th, whose neighbours outside are unseen):
+    the kernel's plain version walks the union in partition order, the
+    oracle in union order, so exact ties may keep different rows."""
+    import torch
+    d_k, d_p = d_k.cpu(), d_p.cpu()
+    if not torch.equal(d_k, d_p):
+        fail(f"{name}: distances not bit-equal")
+    tied = d_p == d_p[:, -1:]
+    tied[:, 1:] |= d_p[:, 1:] == d_p[:, :-1]
+    tied[:, :-1] |= d_p[:, :-1] == d_p[:, 1:]
+    diff = i_k.cpu() != i_p.cpu()
+    if bool((diff & ~tied).any()):
+        fail(f"{name}: {int((diff & ~tied).sum())} ids differ away from "
+             f"exact ties")
+    print(f"{name}: distances bit-equal; ids differ at {int(diff.sum())} "
+          f"positions, all exact ties")
+
+
+def hold_adaptive(name, kern, plain, q, snap):
+    """``search_adaptive`` of two engines (the one under test, its
+    reference) on the same queries.  With equal probe counts the lists
+    must agree (``compare_topk``).  Otherwise every query scans ``chunk``
+    partitions a round, so one side took more rounds: it must be exactly
+    one more, both engines rerun with ``max_rounds`` pinned to the
+    smaller count must agree (probe counts equal, lists by
+    ``compare_topk``), and at that round the side that went on must have
+    had every query it left below the target within ENGINE_TARGET_TIE of
+    it (the query that decided the extra round), the other none below.
+    Returns the check's record."""
+    import dataclasses
+    import torch
+    from repro_torch.core import ShardedQuakeEngine
+    target, chunk = kern.cfg.recall_target, kern.cfg.chunk
+    got, ref_ = kern.search_adaptive(q, snap), plain.search_adaptive(q, snap)
+    rounds = [-(-int(r[3].max()) // chunk) for r in (got, ref_)]
+    out = {"queries": int(q.shape[0]), "rounds": rounds}
+    if not torch.equal(got[3].cpu(), ref_[3].cpu()):
+        if abs(rounds[0] - rounds[1]) != 1:
+            fail(f"{name}: {rounds[0]} rounds vs {rounds[1]}, not one apart")
+        pin = min(rounds)
+        got, ref_ = (ShardedQuakeEngine(e.mesh, dataclasses.replace(
+            e.cfg, max_rounds=pin)).search_adaptive(q, snap)
+            for e in (kern, plain))
+        if not torch.equal(got[3].cpu(), ref_[3].cpu()):
+            fail(f"{name}: probe counts differ with both pinned to {pin} "
+                 f"rounds")
+        went_on, stopped = (got, ref_) if rounds[0] > rounds[1] \
+            else (ref_, got)
+        below = went_on[2].double().cpu() < target
+        margin = float((target - went_on[2].double().cpu()[below]).max()) \
+            if bool(below.any()) else None
+        if margin is None or margin >= ENGINE_TARGET_TIE or bool(
+                (stopped[2].double().cpu() < target).any()):
+            fail(f"{name}: at round {pin} the side that went on left "
+                 f"{int(below.sum())} queries below the target, by up to "
+                 f"{margin!r}, and the other "
+                 f"{int((stopped[2].cpu() < target).sum())}; only queries "
+                 f"within {ENGINE_TARGET_TIE} of the target may differ")
+        out.update(pinned_rounds=pin, deciding_queries=int(below.sum()),
+                   deciding_margin=margin)
+        print(f"{name}: {rounds[0]} rounds vs {rounds[1]}; at round {pin} "
+              f"the lists agree and {int(below.sum())} queries decided "
+              f"the extra round, within {margin:.3g} of the target")
+    out["max_abs_err"], _ = compare_topk(name, *got[:2], *ref_[:2])
+    out["recall_estimate_max_diff"] = float(
+        (got[2].double() - ref_[2].double()).abs().max())
+    print(f"{name}: recall estimates differ by at most "
+          f"{out['recall_estimate_max_diff']:.3g}")
+    return out
+
+
+def hold_query_blocks(name, calls, plain, rows, cols, exact):
+    """Hold each captured indexed-scan call's result (the path's own)
+    against the plain version, ENGINE_HOLD_Q queries at a time: each
+    block takes its query rows of the operands at positions ``rows`` and,
+    of those at ``cols``, the union slots that some query of the block
+    selects.  A query's plain result depends only on its own selected
+    slots, walked in partition order, so each block gives its queries
+    what the whole call's plain version would (that one would hold (B, U
+    * S) scores at once).  ``exact``: distances bit-equal.  Returns the
+    check's record."""
+    import torch
+    if not calls:
+        fail(f"{name}: no call of the engine path was captured")
+    errs, shapes = [], []
+    for i, (a, kw, (dk, ik)) in enumerate(calls):
+        b, u = (int(n) for n in a[-1].shape)
+        parts = []
+        for b0 in range(0, b, ENGINE_HOLD_Q):
+            used = torch.nonzero(a[-1][b0:b0 + ENGINE_HOLD_Q].any(0))
+            used = used.reshape(-1) if used.numel() else used.new_zeros(1)
+            blk = []
+            for j, t in enumerate(a):
+                if j in rows:
+                    t = t[b0:b0 + ENGINE_HOLD_Q]
+                if j in cols:
+                    t = t.index_select(t.dim() - 1, used)
+                blk.append(t)
+            parts.append(plain(*blk, **kw))
+        dp = torch.cat([p_[0] for p_ in parts])
+        ip_ = torch.cat([p_[1] for p_ in parts])
+        err, tol = compare_topk(f"{name} call {i} (B {b}, U {u}, k_pad "
+                                f"{kw['k_pad']})", dk, ik, dp, ip_)
+        if exact and not torch.equal(dk, dp):
+            fail(f"{name} call {i}: distances differ from the plain "
+                 f"version's by {err!r}, not bit-equal")
+        errs.append(err)
+        shapes.append({"B": b, "U": u, "k_pad": kw["k_pad"]})
+        del parts, dp, ip_
+    return {"calls": len(calls), "max_abs_err": max(errs),
+            "bit_equal": bool(exact), "shapes": shapes}
+
+
+def brute_force_shape(st, snap, q_dev):
+    """The dense scan at ``search_bruteforce``'s shape: the B queries
+    against every row of the engine's f32 block (its P * S_cap slots,
+    ``valid`` the live ones), k_pad of k = 100.  Held against the plain
+    version in blocks of BRUTE_PLAIN_Q queries (its (Q, N) distance
+    matrix does not fit at B = 1,024: 42 GB), and timed beside the
+    library's ``torch.matmul`` + ``torch.topk`` over 1M-row chunks,
+    merged (||x||^2 and the mask bias outside the timing).  The bound
+    counts the live rows only: those the function needs."""
+    import torch
+    from repro_torch.kernels.ref import MASK_DIST
+    b, d = q_dev.shape
+    flat = snap.data.reshape(-1, d)
+    valid = snap.ids.reshape(-1) >= 0
+    n, n_live = flat.shape[0], int(valid.sum())
+    kp = 128
+
+    def kern():
+        return st.scan_topk_cuda(q_dev, flat, valid, k_pad=kp)
+    dk, ik = kern()
+
+    def plain():
+        parts = [st.scan_topk_plain(q_dev[b0:b0 + BRUTE_PLAIN_Q], flat,
+                                    valid, k_pad=kp)
+                 for b0 in range(0, b, BRUTE_PLAIN_Q)]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+    (dp, ip_), plain_ms = timed(plain)
+    err, tol = compare_topk("scan_topk at the brute-force shape", dk, ik,
+                            dp, ip_)
+    del dp, ip_
+    aux = torch.where(valid, (flat * flat).sum(1), MASK_DIST)
+    chunk = 1 << 20
+
+    def library():
+        vals, pos = [], []
+        for r0 in range(0, n, chunk):
+            dist = aux[r0:r0 + chunk] - 2.0 * torch.matmul(
+                q_dev, flat[r0:r0 + chunk].T)
+            v, i = torch.topk(dist, kp, dim=1, largest=False)
+            vals.append(v)
+            pos.append(i + r0)
+        v, i = torch.topk(torch.cat(vals, 1), kp, dim=1, largest=False)
+        return v, torch.gather(torch.cat(pos, 1), 1, i)
+    ms = cuda_ms(kern, reps=3, warmup=1)
+    lib_ms = cuda_ms(library, reps=3, warmup=1)
+    bound_ms, bound_by = bound((b + n_live) * d * 4 + n + 2 * b * kp * 4,
+                               2.0 * b * n_live * d, F32_FLOPS_PER_S)
+    row = {"Q": b, "N": n, "N_live": n_live, "d": d, "k_pad": kp,
+           "design": st.design(b), "max_abs_err": err, "tol": tol,
+           "ms": ms, "device_ms": device_ms(kern, reps=3),
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"scan_topk brute force (Q={b}, N={n}, {n_live} live, k_pad "
+          f"{kp}): err {err:.3g}, {ms:.3f} ms ({row['device_ms']:.3f} "
+          f"device), library {lib_ms:.3f} ms, plain {plain_ms:.1f} ms, "
+          f"bound {bound_ms:.4f} ({bound_by})")
+    return row
+
+
+def run_engine(args, idx, q, gt, r_ex, first_id, dev, counters):
+    """Path 6, part 1: the sharded engine on path 1's index, a one-rank
+    mesh over NCCL (``make_host_mesh``: ("data", "model"), partitions on
+    "data", queries on "model").  Legs at B = ``--batch``, each entry
+    point called once to warm it and once timed (host clock to a
+    synchronize): f32 at ``"union_cuda"`` (``search_bruteforce``,
+    ``search_fixed``, ``search_adaptive``, ``search_batch``), then bf16
+    and int8 storage (fixed, adaptive, batch), then the refresh leg.
+
+    Gates: brute force recall@k >= BRUTE_RECALL_MIN against the exact
+    ground truth; ``search_batch`` equal to the executor's on the same
+    index (``r_ex``: ids but at near-ties, rounds and partitions
+    scanned); in every storage, the indexed scans of the timed fixed,
+    adaptive and batch calls held against their plain versions on their
+    own operands (``hold_query_blocks``: the main path's tolerance, int8
+    bit-equal); fixed and adaptive against the same engine at
+    ``"union_torch"`` (the plain oracles) on the first ENGINE_CHECK_Q
+    queries (the oracle sorts every (query, union row) distance); the
+    ``"gather"`` scan on the first ENGINE_GATHER_Q queries against
+    ``"union_cuda"``; bf16 ids overlapping f32's by BF16_RECALL; int8
+    bit-equal to ``"union_torch"`` (fixed, adaptive, batch) on the check
+    queries; 100 vectors inserted near 4 queries refresh the f32 block
+    by one delta, no rebuild, and are found (their ``kmeans_assign``
+    call held against its plain version); a structural change rebuilds
+    it.  Returns (record, the brute-force ``scan_topk`` row)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import EngineConfig, ShardedQuakeEngine
+    from repro_torch.kernels import scan_topk as st
+    from repro_torch.launch.mesh import describe, make_host_mesh
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import scan_topk_indexed as sti
+    mesh = make_host_mesh(device="cuda")
+    out = {"card": card_line(), "mesh": describe(mesh), "legs": {},
+           "engine_check": {}}
+    print(f"engine: mesh {out['mesh']} over NCCL on {mesh.device}")
+    base = dict(k=args.k, nprobe=ENGINE_NPROBE, chunk=ENGINE_CHUNK,
+                max_rounds=ENGINE_ROUNDS, recall_target=ENGINE_TARGET)
+
+    def engine(**kw):
+        return ShardedQuakeEngine(mesh, EngineConfig(**base, **kw))
+
+    captured = {}     # storage -> the timed calls' indexed scans
+
+    def capture(storage, calls):
+        """The storage's indexed-scan wrapper, patched to record up to
+        ``calls`` more of its calls."""
+        got = captured.setdefault(storage, [])
+        name, at, by_ref = ("scan_topk_indexed_q8", 2, {2, 3, 6}) \
+            if storage == "int8" else ("scan_topk_indexed", 1, {1, 2})
+        return sti, name, capture_rounds(getattr(sti, name), got, at,
+                                         by_ref, len(got) + calls)
+
+    def hold(storage):
+        calls = captured.pop(storage)
+        if storage == "int8":
+            out["engine_check"][storage] = hold_query_blocks(
+                "engine int8 scan_topk_indexed_q8", calls,
+                sti.scan_topk_indexed_q8_plain, {0, 1, 5, 8}, {5, 7, 8},
+                exact=True)
+        else:
+            out["engine_check"][storage] = hold_query_blocks(
+                f"engine {storage} scan_topk_indexed", calls,
+                sti.scan_topk_indexed_plain, {0, 4}, {3, 4}, exact=False)
+        del calls
+        torch.cuda.empty_cache()
+
+    def leg(name, fn, storage=None, calls=ENGINE_HOLD_ROUNDS):
+        """Warm ``fn``, then time it; with ``storage`` the timed call's
+        first ``calls`` indexed scans are captured."""
+        res, wall, launches = warm_then_time(fn, counters, lambda: patched(
+            *([capture(storage, calls)] if storage else [])))
+        batch = not isinstance(res, tuple)
+        ids = res.ids if batch else res[1].cpu().numpy()
+        dists = res.dists if batch else res[0].double().cpu().numpy()
+        if ids.shape != (q.shape[0], args.k):
+            fail(f"engine {name}: result shape {ids.shape}")
+        if not np.isfinite(dists[ids >= 0]).all() or \
+                (not batch and (dists[ids >= 0] >= 1e37).any()):
+            fail(f"engine {name}: non-finite distances")
+        row = {"wall_ms": wall, "launches_per_call": launches,
+               "recall@k": recall_at(ids, gt)}
+        if batch:
+            row.update(rounds=int(res.rounds),
+                       mean_nprobe=float(res.nprobe.mean()),
+                       partitions_scanned=int(res.partitions_scanned))
+        elif len(res) == 4:
+            row.update(mean_nprobe=float(res[3].double().mean()),
+                       rounds=int(res[3].max()) // ENGINE_CHUNK,
+                       mean_recall_estimate=float(res[2].mean()))
+        out["legs"][name] = row
+        print(f"  engine {name}: recall@{args.k} {row['recall@k']:.4f}, "
+              f"warm {wall:.1f} ms, launches {launches}"
+              + (f", rounds {row['rounds']}, mean nprobe "
+                 f"{row['mean_nprobe']:.2f}" if "rounds" in row else ""))
+        return res
+
+    q_dev = torch.as_tensor(q, device=dev)
+    qc, qg = q[:ENGINE_CHECK_Q], q[:ENGINE_GATHER_Q]
+
+    # ---- f32 ----
+    e32 = engine(scan_impl="union_cuda")
+    snap = e32.refresh_snapshot(idx)
+    out["snapshot"] = {"P": snap.num_partitions, "S_cap": snap.capacity,
+                       "live_rows": int((snap.ids >= 0).sum())}
+    leg("bruteforce_f32", lambda: e32.search_bruteforce(q, snap))
+    if out["legs"]["bruteforce_f32"]["recall@k"] < BRUTE_RECALL_MIN:
+        fail(f"engine brute force recall "
+             f"{out['legs']['bruteforce_f32']['recall@k']:.4f} < "
+             f"{BRUTE_RECALL_MIN}")
+    fixed = leg("fixed_f32", lambda: e32.search_fixed(q, snap), "f32", 1)
+    leg("adaptive_f32", lambda: e32.search_adaptive(q, snap), "f32")
+    rb = leg("batch_f32", lambda: e32.search_batch(idx, q, args.k,
+                                                   recall_target=0.9),
+             "f32")
+    compare_topk("engine search_batch vs the executor's",
+                 torch.as_tensor(rb.dists), torch.as_tensor(rb.ids),
+                 torch.as_tensor(r_ex.dists), torch.as_tensor(r_ex.ids))
+    if (rb.rounds, rb.partitions_scanned) != (r_ex.rounds,
+                                              r_ex.partitions_scanned):
+        fail(f"engine search_batch: rounds {rb.rounds}, partitions "
+             f"{rb.partitions_scanned}; the executor's {r_ex.rounds}, "
+             f"{r_ex.partitions_scanned}")
+
+    def f32_checks():
+        hold("f32")
+        plain = engine(scan_impl="union_torch")
+        compare_topk("engine f32 search_fixed vs union_torch",
+                     *e32.search_fixed(qc, snap),
+                     *plain.search_fixed(qc, snap))
+        out["adaptive_vs_union_torch"] = hold_adaptive(
+            "engine f32 search_adaptive vs union_torch", e32, plain, qc,
+            snap)
+        gather = engine(scan_impl="gather")
+        compare_topk("engine gather search_fixed vs union_cuda",
+                     *gather.search_fixed(qg, snap),
+                     *e32.search_fixed(qg, snap))
+        out["gather_adaptive_vs_union_cuda"] = hold_adaptive(
+            "engine gather search_adaptive vs union_cuda", gather, e32, qg,
+            snap)
+        out["profile_fixed"] = profile_call(
+            lambda: e32.search_fixed(q, snap), "engine_search_fixed")
+        out["profile_adaptive"] = profile_call(
+            lambda: e32.search_adaptive(q, snap), "engine_search_adaptive")
+        return brute_force_shape(st, snap, q_dev)
+    brute_row = uncounted(counters, f32_checks)
+
+    # ---- bf16 ----
+    e16 = engine(scan_impl="union_cuda", storage_dtype="bf16")
+    s16 = e16.refresh_snapshot(idx)
+    f16 = leg("fixed_bf16", lambda: e16.search_fixed(q, s16), "bf16", 1)
+    leg("adaptive_bf16", lambda: e16.search_adaptive(q, s16), "bf16")
+    leg("batch_bf16", lambda: e16.search_batch(idx, q, args.k,
+                                               recall_target=0.9), "bf16")
+    hold("bf16")
+    ov = overlap(f16[1].cpu().numpy(), fixed[1].cpu().numpy())
+    out["bf16_overlap_f32"] = ov
+    print(f"  engine bf16 search_fixed ids overlap f32's: {ov:.4f}")
+    if ov < BF16_RECALL:
+        fail(f"engine bf16 overlap with f32 {ov:.4f} < {BF16_RECALL}")
+    del e16, s16, f16
+
+    # ---- int8 ----
+    e8 = engine(scan_impl="union_cuda", storage_dtype="int8")
+    s8 = e8.refresh_snapshot(idx)
+    leg("fixed_int8", lambda: e8.search_fixed(q, s8), "int8", 1)
+    leg("adaptive_int8", lambda: e8.search_adaptive(q, s8), "int8")
+    leg("batch_int8", lambda: e8.search_batch(idx, q, args.k,
+                                              recall_target=0.9), "int8")
+    hold("int8")
+
+    def int8_checks():
+        # fresh engines: each planner calibrates its radius on these queries
+        kern = engine(scan_impl="union_cuda", storage_dtype="int8")
+        plain = engine(scan_impl="union_torch", storage_dtype="int8")
+        pairs = [("search_fixed", e8.search_fixed(qc, s8),
+                  plain.search_fixed(qc, s8)),
+                 ("search_adaptive", e8.search_adaptive(qc, s8),
+                  plain.search_adaptive(qc, s8))]
+        for name, a, b in pairs:
+            hold_bit_equal(f"engine int8 {name} vs union_torch", *a[:2],
+                           *b[:2])
+            for x, y in zip(a[2:], b[2:]):
+                if not torch.equal(x.cpu(), y.cpu()):
+                    fail(f"engine int8 {name}: recall estimates or probe "
+                         f"counts differ from union_torch's")
+        ra = kern.search_batch(idx, qc, args.k, recall_target=0.9)
+        rp = plain.search_batch(idx, qc, args.k, recall_target=0.9)
+        hold_bit_equal("engine int8 search_batch vs union_torch",
+                       *(torch.as_tensor(v) for v in (ra.dists, ra.ids,
+                                                      rp.dists, rp.ids)))
+        if ra.rounds != rp.rounds or not np.array_equal(ra.nprobe,
+                                                        rp.nprobe):
+            fail("engine int8 search_batch: rounds or probe counts differ "
+                 "from union_torch's")
+    uncounted(counters, int8_checks)
+    del e8, s8
+    torch.cuda.empty_cache()
+
+    # ---- refresh: a delta patch, then a structural rebuild ----
+    rebuilds = e32.full_rebuilds
+    rng = np.random.default_rng(args.seed + 6)
+    new_x = (np.repeat(q[:4], 25, axis=0) + rng.normal(
+        size=(100, q.shape[1])).astype(np.float32) * 0.01)
+    new_ids = np.arange(first_id, first_id + 100, dtype=np.int64)
+    before = counters["kmeans_assign"].count
+    assign, real_assign = [], ka.kmeans_assign
+
+    def captured_assign(xs, cents, aux):
+        assign.append((xs.clone(), cents.clone(), aux.clone()))
+        return real_assign(xs, cents, aux)
+    with patched((ka, "kmeans_assign", captured_assign)):
+        idx.insert(new_x, new_ids)
+    if not assign:
+        fail("engine refresh: the insert routed nothing through "
+             "kmeans_assign")
+    xs_a, c_a, aux_a = assign[-1]
+    err, tol, _ = uncounted(counters, lambda: hold_assign(
+        ka, "engine kmeans_assign (the refresh leg's insert)", xs_a, c_a,
+        aux_a))
+    out["engine_check"]["kmeans_assign"] = {
+        "calls": len(assign), "max_abs_err": err, "tol": tol,
+        "shape": {"N": int(xs_a.shape[0]), "C": int(c_a.shape[0]),
+                  "d": int(xs_a.shape[1])}}
+    del assign, xs_a, c_a, aux_a
+    snap = e32.refresh_snapshot(idx)
+    _, ids4 = e32.search_fixed(q[:4], snap)
+    found = len(set(ids4.cpu().numpy().ravel().tolist())
+                & set(new_ids.tolist()))
+    out["refresh"] = {"delta_refreshes": e32.delta_refreshes,
+                      "full_rebuilds": e32.full_rebuilds,
+                      "new_ids_found": found,
+                      "kmeans_assign_launches":
+                          counters["kmeans_assign"].count - before}
+    if e32.delta_refreshes != 1 or e32.full_rebuilds != rebuilds:
+        fail(f"engine refresh: {e32.delta_refreshes} delta refreshes, "
+             f"{e32.full_rebuilds} full rebuilds after an insert of 100")
+    if found != len(new_ids):
+        fail(f"engine refresh: {found} of {len(new_ids)} new ids found")
+    idx.journal.record(structural=True, reason="chip_smoke structural")
+    e32.refresh_snapshot(idx)
+    out["refresh"]["full_rebuilds_after_structural"] = e32.full_rebuilds
+    if e32.full_rebuilds != rebuilds + 1:
+        fail("engine refresh: a structural change must rebuild the block")
+    print(f"engine refresh: {out['refresh']}")
+    return out, brute_row
+
+
+def run_capacity(args, dev, counters):
+    """Path 6, part 2: the ``quake-ann`` capacity leg, configs/
+    quake_arch.py's FULL (p = 16,384, s_cap = 12,288, d = 128, k = 100)
+    in int8 storage on one card, drawn by ``IndexSnapshot.synthetic``
+    (25.8 GB of codes; no index behind it).  Queries are the port's
+    own: CAP_B rows near centroids picked from a seeded generator.
+    ``serve_fixed_1k`` (``search_fixed``, nprobe CAP_NPROBE) and
+    ``serve_adaptive_1k`` (``search_adaptive``), each warmed and timed;
+    recall@k of the first CAP_GT_Q queries against their exact top-k over
+    the f32 rows (drawn again, block by block); the q8 kernel held
+    bit-equal to its plain version on the first CAP_CHECK_Q queries'
+    own union (the whole union's plain version would need (B, U*S)
+    scores).  ``bulk_brute_8k`` is left out (about 422 TFLOP of f32)."""
+    import torch
+    from repro_torch.core import EngineConfig, IndexSnapshot, \
+        ShardedQuakeEngine
+    from repro_torch.core.snapshot import synthetic_blocks
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import scan_topk_indexed as sti
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    snap = IndexSnapshot.synthetic(CAP_P, CAP_S, CAP_D, seed=args.seed,
+                                   dtype=torch.int8, device=dev)
+    torch.cuda.synchronize()
+    out = {"card": card_line(), "build_s": time.perf_counter() - t,
+           "shape": {"p": CAP_P, "s_cap": CAP_S, "d": CAP_D, "k": CAP_K,
+                     "B": CAP_B, "nprobe": CAP_NPROBE},
+           "bytes": {"codes": snap.data.numel(),
+                     "scales": snap.scales.numel() * 4,
+                     "ids": snap.ids.numel() * 4},
+           "legs": {}}
+    print(f"capacity: int8 snapshot {CAP_P} x {CAP_S} x {CAP_D} drawn in "
+          f"{out['build_s']:.1f} s: {out['bytes']}")
+    eng = ShardedQuakeEngine(make_host_mesh(device="cuda"), EngineConfig(
+        k=CAP_K, nprobe=CAP_NPROBE, chunk=ENGINE_CHUNK,
+        max_rounds=ENGINE_ROUNDS, recall_target=ENGINE_TARGET,
+        scan_impl="union_cuda", storage_dtype="int8"))
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    pick = torch.randint(0, CAP_P, (CAP_B,), generator=gen, device=dev)
+    q = snap.centroids[pick] + torch.randn((CAP_B, CAP_D), generator=gen,
+                                           device=dev)
+    # exact top-k of the first CAP_GT_Q queries over the f32 rows
+    qg = q[:CAP_GT_Q]
+    best_d = torch.full((CAP_GT_Q, 0), 0.0, device=dev)
+    best_i = torch.full((CAP_GT_Q, 0), 0, dtype=torch.long, device=dev)
+    for a, z, _, x in synthetic_blocks(CAP_P, CAP_S, CAP_D, args.seed,
+                                       dev):
+        x = x.reshape(-1, CAP_D)
+        dist = (x * x).sum(1)[None] - 2.0 * qg @ x.T
+        v, i = torch.topk(dist, CAP_K, dim=1, largest=False)
+        v, j = torch.topk(torch.cat([best_d, v], 1), CAP_K, dim=1,
+                          largest=False)
+        best_i = torch.gather(torch.cat([best_i, i + a * CAP_S], 1), 1, j)
+        best_d = v
+    gt = best_i.cpu().numpy()     # ids are arange: flat index = id
+    del x, dist
+    # the q8 kernel on the first CAP_CHECK_Q queries' own union
+    q8 = q[:CAP_CHECK_Q].contiguous()
+    valid = snap.ids >= 0
+    cd = eng._local_centroid_dists(q8, snap)
+    sel_q = torch.sort(cd, dim=1, stable=True).indices[:, :CAP_NPROBE]
+    selected = torch.zeros_like(cd, dtype=torch.bool).scatter_(1, sel_q,
+                                                               True)
+    sel_u, qmask = ops.pack_union(selected, CAP_CHECK_Q * CAP_NPROBE)
+    operands = ref.q8_scan_operands(q8, snap.data, snap.scales, valid,
+                                    sel_u, "l2", snap.centroids)
+    args8 = (*operands[:2], snap.data, snap.scales, *operands[2:], valid,
+             sel_u, qmask.contiguous())
+    dk, ik = uncounted(counters, lambda: sti.scan_topk_indexed_q8_cuda(
+        *args8, k_pad=128))
+    dp, ip_ = sti.scan_topk_indexed_q8_plain(*args8, k_pad=128)
+    if not (torch.equal(dk, dp) and torch.equal(ik, ip_)):
+        fail("capacity: the q8 kernel is not bit-equal to its plain "
+             "version on the check queries' union")
+    out["q8_check"] = {"queries": CAP_CHECK_Q, "U": int(sel_u.shape[0]),
+                       "bit_equal": True}
+    print(f"capacity: q8 kernel bit-equal to its plain version on "
+          f"{CAP_CHECK_Q} queries' union of {int(sel_u.shape[0])}")
+    del operands, args8, dk, dp, valid, cd, selected, qmask
+    torch.cuda.empty_cache()
+    kp = ops._next_pow2(CAP_K)
+    uc = max(1, sti.SCRATCH_BYTES // (CAP_B * kp * 8))
+    for name, fn, u in (
+            ("serve_fixed_1k", lambda: eng.search_fixed(q, snap),
+             min(CAP_B * CAP_NPROBE, CAP_P)),
+            ("serve_adaptive_1k", lambda: eng.search_adaptive(q, snap),
+             min(CAP_B * ENGINE_CHUNK, CAP_P))):
+        res, wall, launches = warm_then_time(fn, counters)
+        d_, i_ = res[0], res[1].cpu().numpy()
+        if i_.shape != (CAP_B, CAP_K) or not bool(torch.isfinite(
+                d_[res[1] >= 0]).all()):
+            fail(f"capacity {name}: bad result")
+        row = {"wall_ms": wall, "launches_per_call": launches,
+               "recall@k_first_queries": recall_at(i_[:CAP_GT_Q], gt),
+               "union_slots_per_scan": u,
+               "union_chunks_per_scan": -(-u // min(u, uc))}
+        if len(res) == 4:
+            row.update(mean_nprobe=float(res[3].double().mean()),
+                       rounds=int(res[3].max()) // ENGINE_CHUNK)
+        out["legs"][name] = row
+        print(f"  capacity {name}: recall@{CAP_K} (first {CAP_GT_Q}) "
+              f"{row['recall@k_first_queries']:.4f}, warm {wall:.1f} ms, "
+              f"launches {row['launches_per_call']}, union "
+              f"{u} slots in {row['union_chunks_per_scan']} chunk(s)"
+              + (f", rounds {row['rounds']}" if "rounds" in row else ""))
+    out["profile_fixed"] = uncounted(counters, lambda: profile_call(
+        lambda: eng.search_fixed(q, snap), "capacity_serve_fixed_1k"))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"capacity: peak device memory {out['peak_gb']:.2f} GB "
+          f"({out['card']})")
+    return out
 
 
 def dry_pass(idx, lam, tau):
@@ -1346,33 +2010,36 @@ def patched(*swaps):
 
 
 def capture_rounds(real, calls, data_arg, by_ref, limit):
-    """A stand-in for an indexed-scan wrapper ``real`` that records the
-    operands of up to ``limit`` calls whose plain version fits in
-    SERVE_PLAIN_BYTES of card memory (it gathers the union's rows of
-    argument ``data_arg`` and widens them to f32), then launches as
-    ``real`` does.  The snapshot's operands (positions ``by_ref``) are
-    kept by reference, the round's own cloned."""
+    """A stand-in for an indexed-scan wrapper ``real`` that launches as
+    ``real`` does and records the operands and the result of the calls
+    while fewer than ``limit`` are recorded, each one whose plain version
+    fits in SERVE_PLAIN_BYTES of card memory (it gathers the union's rows
+    of argument ``data_arg`` and widens them to f32).  The snapshot's
+    operands (positions ``by_ref``) are kept by reference, the call's own
+    cloned."""
     def run(*a, **kw):
         codes, sel = a[data_arg], a[-2]
         elem = codes.element_size()
         need = (int(sel.shape[0]) * int(codes.shape[1]) * int(codes.shape[2])
                 * (elem + (4 if elem != 4 else 0)))
-        if len(calls) < limit and need <= SERVE_PLAIN_BYTES:
-            calls.append(([t if i in by_ref else t.clone()
-                           for i, t in enumerate(a)], dict(kw)))
-        return real(*a, **kw)
+        keep = len(calls) < limit and need <= SERVE_PLAIN_BYTES
+        if keep:
+            a_kept = [t if i in by_ref else t.clone() for i, t in enumerate(a)]
+        out = real(*a, **kw)
+        if keep:
+            calls.append((a_kept, dict(kw), out))
+        return out
     return run
 
 
-def hold_rounds(name, calls, kern, plain, exact):
-    """Hold each captured round's kernel result against its plain
-    version (``compare_topk``; ``exact``: distances bit-equal).  Returns
-    the check's record."""
+def hold_rounds(name, calls, plain, exact):
+    """Hold each captured round's kernel result (the path's own) against
+    its plain version (``compare_topk``; ``exact``: distances
+    bit-equal).  Returns the check's record."""
     if not calls:
         fail(f"{name}: no round of the serving path was captured")
     errs, shapes = [], []
-    for i, (a, kw) in enumerate(calls):
-        dk, ik = kern(*a, **kw)
+    for i, (a, kw, (dk, ik)) in enumerate(calls):
         dp, ip_ = plain(*a, **kw)
         b, u = int(a[-1].shape[0]), int(a[-2].shape[0])
         err, tol = compare_topk(f"{name} serving round {i} (B {b}, U {u}, "
@@ -1646,9 +2313,11 @@ def run_serving(args, wl, dev, start_path, end_path) -> dict:
         return real_dense(queries, xs, valid, **kw)
 
     def hold_device_rounds():
+        gc.collect()          # the plain versions need the cached blocks
+        torch.cuda.empty_cache()
         checks["scan_topk_indexed"] = hold_rounds(
-            "scan_topk_indexed", f32_calls, sti.scan_topk_indexed_cuda,
-            sti.scan_topk_indexed_plain, exact=False)
+            "scan_topk_indexed", f32_calls, sti.scan_topk_indexed_plain,
+            exact=False)
         f32_calls.clear()
         torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -1734,8 +2403,8 @@ def run_serving(args, wl, dev, start_path, end_path) -> dict:
     res8 = [rt8.result(i) for i in qids]
     out["int8_launches"] = end_path("serving_int8", ("scan_topk_indexed_q8",))
     checks["scan_topk_indexed_q8"] = hold_rounds(
-        "scan_topk_indexed_q8", q8_calls, sti.scan_topk_indexed_q8_cuda,
-        sti.scan_topk_indexed_q8_plain, exact=True)
+        "scan_topk_indexed_q8", q8_calls, sti.scan_topk_indexed_q8_plain,
+        exact=True)
     del q8_calls
     rt8.close()
     torch.cuda.empty_cache()

@@ -1,7 +1,8 @@
 """Quake's main path: build, plan, pack, scan, rounds, insert/delete, the
 int8 storage path, cost-model maintenance, durability (WAL and
-checkpoints) and the online serving runtime."""
+checkpoints), the online serving runtime and the mesh-sharded engine."""
 from .convert import index_from_arrays, index_to_arrays
+from .distributed import EngineConfig, ShardedQuakeEngine
 from .cost_model import (LatencyModel, PartitionStats, fit_latency_model,
                          profile)
 from .index import Level, QuakeConfig, QuakeIndex, SearchResult, resolve_device
@@ -17,13 +18,13 @@ from .serving import (STATUS_FAILED, STATUS_OK, STATUS_PARTIAL, STATUS_SHED,
 from .snapshot import IndexSnapshot, SnapshotPatch
 
 __all__ = ["BatchPlan", "BatchResult", "BatchedSearchExecutor",
-           "IndexSnapshot", "LatencyModel", "Level", "Maintainer",
+           "EngineConfig", "IndexSnapshot", "LatencyModel", "Level", "Maintainer",
            "MaintenancePolicy", "MaintenanceReport",
            "MaintenanceScheduler", "MaintenanceTriggers", "PartitionStats",
            "QuakeConfig", "QuakeIndex", "QueryResult", "ResultCache",
            "RoundPlan", "STATUS_FAILED", "STATUS_OK", "STATUS_PARTIAL",
            "STATUS_SHED", "SearchResult", "ServingConfig",
-           "ServingRuntime", "SnapshotPatch", "TERMINAL_STATUSES",
+           "ServingRuntime", "ShardedQuakeEngine", "SnapshotPatch", "TERMINAL_STATUSES",
            "batch_search", "checkpoint_index",
            "fit_latency_model", "get_executor", "index_from_arrays",
            "index_to_arrays", "per_query_search", "plan_batch",

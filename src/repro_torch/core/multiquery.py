@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import math
 import time
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
@@ -44,9 +44,9 @@ from ..kernels import ops
 from ..kernels.ref import MASK_DIST
 from . import aps as aps_mod
 from .index import QuakeIndex
-from .snapshot import IndexSnapshot
+from .snapshot import STORAGE, IndexSnapshot
 
-STORAGE_DTYPES = ("f32", "bf16", "int8")
+STORAGE_DTYPES = tuple(STORAGE)
 U_BUCKET = 8        # union widths round up to a multiple of this
 
 
@@ -849,14 +849,12 @@ class BatchedSearchExecutor:
             pad_to = max(pad_to, lvl0.num_partitions)
         self._snap = None        # drop the old tensors before the new ones
         snap = IndexSnapshot.from_index(
-            self.index, capacity=cap, int8=self.storage_dtype == "int8",
+            self.index, capacity=cap, dtype=STORAGE[self.storage_dtype],
             pad_partitions_to=pad_to)
         self._valid = snap.ids >= 0
         self._flat_ids = snap.ids.cpu().numpy().reshape(-1)
         self._sizes = snap.sizes.cpu().numpy()
-        if self.storage_dtype == "bf16":
-            snap = replace(snap, data=snap.data.to(torch.bfloat16))
-        elif self.storage_dtype == "int8":
+        if self.storage_dtype == "int8":
             if self.int8_rerank:
                 sizes = lvl0.sizes().astype(np.int64)
                 self._mirror = np.concatenate(

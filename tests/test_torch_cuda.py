@@ -936,3 +936,130 @@ def test_serving_rounds_under_the_sync_guard(dev):
     assert {rt.result(i).status for i in warm + qids} == {"OK"}
     assert rt.stats()["scan_faults"] == 0
     rt.close()
+
+
+# ---------------------------------------------------------------------------
+# the sharded engine on the card
+# ---------------------------------------------------------------------------
+
+def _engine(dev, **kw):
+    from repro_torch.core import EngineConfig, ShardedQuakeEngine
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh((1, 1, 1), ("pod", "data", "model"), device=dev)
+    return ShardedQuakeEngine(mesh, EngineConfig(
+        k=10, nprobe=8, part_axes=("pod", "data"), **kw))
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_engine_on_the_card_matches_the_plain_versions(dev, storage):
+    """The engine at ``"union_cuda"`` on the card launches the indexed
+    (or q8) kernel and the dense kernel, and agrees with the same engine
+    on CPU tensors (the kernels' plain versions); int8 bit-equal, and
+    with ``"union_torch"`` (the oracles) on the card too."""
+    from repro_torch.core import IndexSnapshot
+    ds = datasets.clustered(3000, 16, n_clusters=16, seed=0)
+    cpu_idx = QuakeIndex.build(ds.vectors, num_partitions=30,
+                               kmeans_iters=4, device="cpu")
+    gpu_idx = index_from_arrays(index_to_arrays(cpu_idx), device=dev)
+    q = datasets.queries_near(ds, 24, seed=3)
+    cpu = _engine("cpu", scan_impl="union_cuda", storage_dtype=storage)
+    gpu = _engine(dev, scan_impl="union_cuda", storage_dtype=storage)
+    orc = _engine(dev, scan_impl="union_torch", storage_dtype=storage)
+    snap = IndexSnapshot.from_index(cpu_idx)
+    sc, sg = cpu.shard_snapshot(snap), gpu.shard_snapshot(snap)
+    counter = sti.LAUNCHES_Q8 if storage == "int8" else sti.LAUNCHES
+    before = counter.count
+    outs = []
+    for eng, s in ((gpu, sg), (cpu, sc), (orc, sg)):
+        fx = eng.search_fixed(q, s)
+        ad = eng.search_adaptive(q, s)
+        bt = eng.search_batch(gpu_idx if eng is not cpu else cpu_idx, q, 10,
+                              recall_target=0.9)
+        outs.append((fx, ad, bt))
+        if eng is gpu:        # fixed, every adaptive round, every round
+            assert counter.count - before >= 2 + bt.rounds
+    (fg, ag, bg), (fc, ac, bc), (fo, ao, bo) = outs
+    for (dk, ik), (dp, ip_) in ((fg, fc), (ag[:2], ac[:2])):
+        _same_topk(dk.to(dev), ik.to(dev), dp.to(dev), ip_.to(dev))
+    if storage == "int8":
+        # on the same card the q8 kernel and the oracle share their f32
+        # operands (aux, qc): distances bit-equal, ids but at exact ties
+        for (dk, ik), (dp, ip_) in ((fg, fo), (ag[:2], ao[:2])):
+            dk, dp, ik, ip_ = dk.cpu(), dp.cpu(), ik.cpu(), ip_.cpu()
+            assert torch.equal(dk, dp)
+            tied = dp == dp[:, -1:]
+            tied[:, 1:] |= dp[:, 1:] == dp[:, :-1]
+            tied[:, :-1] |= dp[:, :-1] == dp[:, 1:]
+            assert ((ik == ip_) | tied).all()
+    assert torch.equal(ag[3].cpu(), ac[3].cpu())
+    np.testing.assert_array_equal(bg.nprobe, bc.nprobe)
+    assert bg.rounds == bc.rounds
+    assert _recall(torch.as_tensor(bg.ids), torch.as_tensor(bc.ids)) >= 0.999
+    if storage == "int8":
+        np.testing.assert_array_equal(bg.dists, bo.dists)
+    if storage != "int8":
+        before = st.LAUNCHES.count
+        db, ib = gpu.search_bruteforce(q, sg)
+        assert st.LAUNCHES.count - before == 1
+        _same_topk(db, ib, *(t.to(dev) for t in
+                             cpu.search_bruteforce(q, sc)))
+
+
+def test_engine_bruteforce_past_2_to_24_rows(dev):
+    """Brute force over a synthetic shard of more than 2^24 rows goes
+    through one ``scan_topk`` launch and finds the exact top-k (a chunked
+    ``torch.matmul`` + ``torch.topk`` on the same rows)."""
+    from repro_torch.core import IndexSnapshot
+    p, s, d = 1040, 16384, 16
+    assert p * s > 1 << 24
+    snap = IndexSnapshot.synthetic(p, s, d, seed=1, device=dev)
+    eng = _engine(dev, scan_impl="union_cuda")
+    q = (snap.centroids[torch.arange(0, p, p // 8)]
+         + torch.randn(8, d, device=dev, generator=torch.Generator(
+             device=dev).manual_seed(2)))
+    before = st.LAUNCHES.count
+    dk, ik = eng.search_bruteforce(q, snap)
+    assert st.LAUNCHES.count - before == 1
+    flat = snap.data.reshape(-1, d)
+    best_d, best_i = [], []
+    for r0 in range(0, flat.shape[0], 1 << 22):
+        x = flat[r0:r0 + (1 << 22)]
+        dist = ((q * q).sum(1)[:, None] + (x * x).sum(1)[None]
+                - 2.0 * q @ x.T)
+        v, i = torch.topk(dist, 10, dim=1, largest=False)
+        best_d.append(v)
+        best_i.append(i + r0)
+    v, pos = torch.topk(torch.cat(best_d, 1), 10, dim=1, largest=False)
+    ip_ = torch.gather(torch.cat(best_i, 1), 1, pos)
+    _same_topk(dk, ik, v, snap.ids.reshape(-1)[ip_])
+
+
+def test_engine_int8_bruteforce_raises_on_the_card(dev):
+    from repro_torch.core import IndexSnapshot
+    snap = IndexSnapshot.synthetic(8, 64, 16, seed=0, dtype=torch.int8,
+                                   device=dev)
+    eng = _engine(dev, scan_impl="union_cuda", storage_dtype="int8")
+    q = snap.centroids[:4].clone()
+    with pytest.raises(ValueError, match="int8 residual codes"):
+        eng.search_bruteforce(q, snap)
+    d, i = eng.search_fixed(q, snap)
+    assert (i[:, 0] >= 0).all()
+
+
+def test_one_rank_nccl_mesh_collectives_are_the_identity(dev, tmp_path):
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh(device="cuda")
+        assert mesh.device.type == "cuda"
+        t = torch.arange(12, dtype=torch.float32, device=dev).reshape(3, 4)
+        for axes in (("data",), ("model",), ("data", "model")):
+            assert mesh.group(axes) is not None
+            assert torch.equal(mesh.all_gather(t, axes, dim=1), t)
+            for op in (mesh.psum, mesh.pmin, mesh.pmax):
+                assert torch.equal(op(t, axes), t)
+            assert torch.equal(mesh.psum(t.long(), axes), t.long())
+    finally:
+        dist.destroy_process_group()
