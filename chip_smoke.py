@@ -5,9 +5,9 @@
                           [--wiki-n 1000000] [--months 12]
                           [--serve-months 12]
 
-With no arguments it runs six paths, each with the kernels' launch
+With no arguments it runs seven paths, each with the kernels' launch
 counts set to 0 just before it and read just after (path 6 runs after
-the kernel checks and before path 3):
+the kernel checks and before path 3, path 7 last):
 
 1. The main path, the SIFT1M-shaped cell: 1,000,000 clustered synthetic
    vectors of d=128 (L2; a mixture of 8192 Gaussian clusters with sizes
@@ -89,6 +89,31 @@ the kernel checks and before path 3):
    to its plain version on the first queries' union.  It prints recall,
    warm wall times, the device's idle share of a warm ``search_fixed`` and
    ``search_adaptive``, rounds, nprobe and launches per leg.
+
+7. Recsys serving (``models/recsys.py``), after the LM path's tensors
+   are freed: first each smoke config with the same weights on the card
+   and the CPU (forward, serve, retrieval, chunked retrieval, and ids
+   out of range both ways) within 1e-5 * |x| + 1e-5.  Then two-tower,
+   DLRM RM-2, DIN and SASRec at their published configs
+   (``configs/recsys_archs.py``; f32 tables drawn on the card from a
+   seed, one model at a time, up to DLRM's 33.3 GB): ``serve_p99`` (B =
+   512) and ``serve_bulk`` (B = 262,144) on ``RecsysPipeline`` batches
+   in the model's vocabulary and history length, and ``retrieval_cand``
+   (one user against 1,000,000 distinct candidates), in chunks of
+   65,536 rows; shapes and finite outputs gated.  The two-tower then
+   serves its retrieval through Quake: the 1M candidates encoded
+   (``item_repr``), 512 users (``user_repr``), the exact top-100 by
+   ``retrieval_scores`` + ``torch.topk``, the dense kernel over every
+   candidate, ``QuakeIndex.build(metric="ip")`` with P = 1,000,
+   ``search_batch`` probing every partition (both gated equal to the
+   GEMM's ids but at near-ties), APS at target 0.9 (the fused planner)
+   in f32 and int8 (overlap gated at INT8_OVERLAP; recall printed), the
+   ``retrieval_cand`` user through per-query ``search``, and an insert
+   of 10,000 new items (each its own top-1).  The four Quake kernels are
+   held against their plain versions on this path's operands (the
+   insert's assignment and a sample of the build's; the APS centroid
+   pass and the brute force; the first 3 f32 APS rounds; every int8
+   round, bit-equal) and timed there, at d = 256 under inner product.
 
 It then holds each CUDA kernel against its plain PyTorch version at the
 shapes the paths gave it, times both and a one-library-call yardstick,
@@ -179,6 +204,22 @@ BRUTE_PLAIN_Q = 16            # queries a block of the brute-force plain hold
 # held on the first CAP_CHECK_Q queries' union
 CAP_P, CAP_S, CAP_D, CAP_K = 16384, 12288, 128, 100
 CAP_B, CAP_NPROBE, CAP_GT_Q, CAP_CHECK_Q = 1024, 64, 64, 8
+# the recsys path (path 7): the models of repro_torch.configs.recsys_archs
+# in this order, one model's tables on the card at a time, at their
+# published configs (RECSYS_SIZE 0; 1 takes the smoke configs) and the
+# family's serving shapes (RECSYS_SHAPES None: recsys_archs.RECSYS_SHAPES);
+# rows a chunk of every serve and retrieval call; the Quake leg's users,
+# k, partitions, new items of its catalogue update, the sample of the
+# build's points its assignment is held on, and the APS rounds held.
+# Card against CPU, and every top-k of unit-norm 256-d inner products,
+# within RECSYS_TOL * |x| + RECSYS_TOL: one f32 dot product of 256 terms
+# summed in another order moves by about 1e-6 (the L2 bound TOL_ABS,
+# 1e-2, would call every entry of a top-100 a near-tie)
+RECSYS_ARCHS = ("two-tower-retrieval", "dlrm-rm2", "din", "sasrec")
+RECSYS_SIZE, RECSYS_SHAPES, RECSYS_CHUNK = 0, None, 65_536
+RECSYS_USERS, RECSYS_K, RECSYS_P = 512, 100, 1000
+RECSYS_NEW_ITEMS, RECSYS_ASSIGN_SAMPLE, RECSYS_HOLD_ROUNDS = 10_000, 65_536, 3
+RECSYS_TOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -277,18 +318,18 @@ def recall_at(ids, gt) -> float:
     return float(np.mean(hits))
 
 
-def compare_topk(name, d_k, i_k, d_p, i_p):
+def compare_topk(name, d_k, i_k, d_p, i_p, tol=(TOL_REL, TOL_ABS)):
     """Kernel vs plain top-k lists (B, K): every distance within its
-    tolerance; away from the k-th distance (whose neighbours outside the
-    list are unseen), ids equal position by position wherever the plain
-    list has no near-tie, and equal as sets.  Returns (largest |distance
-    diff|, largest tolerance)."""
+    tolerance ``tol[0] * |d| + tol[1]``; away from the k-th distance
+    (whose neighbours outside the list are unseen), ids equal position by
+    position wherever the plain list has no near-tie, and equal as sets.
+    Returns (largest |distance diff|, largest tolerance)."""
     import torch
     d_k, d_p = d_k.double(), d_p.double()
     real = d_p < 1e37
     if not torch.equal(real, d_k < 1e37):
         fail(f"{name}: kernel and plain disagree on which entries miss")
-    tol = torch.where(real, TOL_REL * d_p.abs() + TOL_ABS, 0.0)
+    tol = torch.where(real, tol[0] * d_p.abs() + tol[1], 0.0)
     diff = torch.where(real, (d_k - d_p).abs(), 0.0)
     err = float(diff.max()) if diff.numel() else 0.0
     if bool((diff > tol).any()):
@@ -655,7 +696,6 @@ def main() -> int:
         from repro_torch.kernels import kmeans_assign as ka
         from repro_torch.kernels import scan_topk as st
         from repro_torch.kernels import scan_topk_indexed as sti
-        from repro_torch.kernels.ref import MASK_DIST
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -873,23 +913,6 @@ def main() -> int:
               f"({w['reads_per_partition']:.3f} reads a partition)")
     n_chk = 64          # queries of the nprobe=32 plan held against plain
 
-    def library_scan(gather, valid_t, metric, kp):
-        """torch.topk over a torch.matmul on the gathered union rows."""
-        blocks = gather()
-        xs_u = blocks.reshape(-1, d)
-        ok = valid_t.index_select(0, sel_l).reshape(-1)
-        aux = torch.where(ok, 0.0, MASK_DIST)
-        if metric == "l2":
-            aux = aux + (xs_u * xs_u).sum(1)
-        coef = -2.0 if metric == "l2" else -1.0
-        out = []
-        for b0 in range(0, b, 64):
-            dist = aux + coef * torch.matmul(q_dev[b0:b0 + 64], xs_u.T)
-            m = qmask[b0:b0 + 64].repeat_interleave(blocks.shape[1], 1)
-            dist = torch.where(m, dist, MASK_DIST)
-            out.append(torch.topk(dist, kp, dim=1, largest=False))
-        return out
-
     for dtype_name, data_t in (("f32", snap.data), ("bf16", bf16_snap)):
         qc = q_dev.to(data_t.dtype).contiguous()
         elem = data_t.element_size()
@@ -932,9 +955,9 @@ def main() -> int:
                              qc[:n_chk], data_t, valid, sel32,
                              qmask32[:n_chk], k_pad=k_pad, metric=metric))
             ms32, dev_ms32 = cuda_ms(kern32), device_ms(kern32)
-            lib_ms = timed(lambda: library_scan(
-                lambda: data_t.index_select(0, sel_l).float(), valid,
-                metric, k_pad))[1]
+            lib_ms = timed(lambda: library_indexed(
+                q_dev, data_t.index_select(0, sel_l).float(), valid, sel_l,
+                qmask, metric, k_pad))[1]
             bound_ms, bound_by = bound(
                 rows_read * d * elem + b * d * elem + 2 * b * k_pad * 4
                 + b * u + rows_read, 2.0 * active_rows * d, F32_FLOPS_PER_S)
@@ -1022,8 +1045,8 @@ def main() -> int:
             fail(f"scan_topk_indexed_q8 {metric} at nprobe=32: distances "
                  f"not bit-equal to the plain version's")
         ms32, dev_ms32 = cuda_ms(kern32), device_ms(kern32)
-        lib_ms = timed(lambda: library_scan(dequantized, ex8._valid, metric,
-                                            kp8))[1]
+        lib_ms = timed(lambda: library_indexed(
+            q_dev, dequantized(), ex8._valid, sel_l, qmask, metric, kp8))[1]
         bound_ms, bound_by = bound(
             rows8 * (d + 4 + 4 + 1) + b * (d + 4) + b * u * (4 + 1)
             + 2 * b * kp8 * 4, 2.0 * active8 * d, INT8_OPS_PER_S)
@@ -1181,6 +1204,18 @@ def main() -> int:
     record["lm"]["path_s"] = time.perf_counter() - t
     print(f"lm path took {record['lm']['path_s']:.1f} s")
     kernels.append(row)
+    del row
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- path 7: recsys serving, two-tower retrieval through Quake -------
+    record["recsys"] = run_recsys(args, dev, start_path, end_path)
+    print(f"recsys path took {record['recsys']['path_s']:.1f} s")
+    for row in kernels:      # each kernel's launches on the recsys path
+        base = row["name"].split("[")[0]
+        row["recsys_launches"] = record["recsys"]["launches"][base]
+        # held against the plain version on the recsys path's own operands
+        row["recsys_check"] = record["recsys"]["kernel_checks"].get(base)
     checks = record["engine"]["engine_check"]
     for row in kernels:      # each kernel's launches on the engine path
         row["engine_launches"] = path_launches["engine"][
@@ -1218,6 +1253,28 @@ def uncounted(counters, fn):
     finally:
         for n, c in counters.items():
             c.count = saved[n]
+
+
+def library_indexed(q, blocks, valid, sel_l, qmask, metric, kp):
+    """The indexed scan's function as library calls: ``torch.topk`` over
+    a ``torch.matmul`` of the queries (64 at a time) against the gathered
+    union rows ``blocks`` (U, S, d)."""
+    import torch
+    from repro_torch.kernels.ref import MASK_DIST
+    d = blocks.shape[-1]
+    xs_u = blocks.reshape(-1, d)
+    ok = valid.index_select(0, sel_l).reshape(-1)
+    aux = torch.where(ok, 0.0, MASK_DIST)
+    if metric == "l2":
+        aux = aux + (xs_u * xs_u).sum(1)
+    coef = -2.0 if metric == "l2" else -1.0
+    out = []
+    for b0 in range(0, q.shape[0], 64):
+        dist = aux + coef * torch.matmul(q[b0:b0 + 64], xs_u.T)
+        m = qmask[b0:b0 + 64].repeat_interleave(blocks.shape[1], 1)
+        dist = torch.where(m, dist, MASK_DIST)
+        out.append(torch.topk(dist, kp, dim=1, largest=False))
+    return out
 
 
 def hold_bit_equal(name, d_k, i_k, d_p, i_p):
@@ -1294,7 +1351,8 @@ def hold_adaptive(name, kern, plain, q, snap):
     return out
 
 
-def hold_query_blocks(name, calls, plain, rows, cols, exact):
+def hold_query_blocks(name, calls, plain, rows, cols, exact,
+                      tol=(TOL_REL, TOL_ABS)):
     """Hold each captured indexed-scan call's result (the path's own)
     against the plain version, ENGINE_HOLD_Q queries at a time: each
     block takes its query rows of the operands at positions ``rows`` and,
@@ -1324,8 +1382,8 @@ def hold_query_blocks(name, calls, plain, rows, cols, exact):
             parts.append(plain(*blk, **kw))
         dp = torch.cat([p_[0] for p_ in parts])
         ip_ = torch.cat([p_[1] for p_ in parts])
-        err, tol = compare_topk(f"{name} call {i} (B {b}, U {u}, k_pad "
-                                f"{kw['k_pad']})", dk, ik, dp, ip_)
+        err, _ = compare_topk(f"{name} call {i} (B {b}, U {u}, k_pad "
+                              f"{kw['k_pad']})", dk, ik, dp, ip_, tol)
         if exact and not torch.equal(dk, dp):
             fail(f"{name} call {i}: distances differ from the plain "
                  f"version's by {err!r}, not bit-equal")
@@ -2469,15 +2527,15 @@ def run_serving(args, wl, dev, start_path, end_path) -> dict:
     return out
 
 
-def hold_assign(ka, name, xs, cents, aux):
+def hold_assign(ka, name, xs, cents, aux, tol=(TOL_REL, TOL_ABS)):
     """Hold ``kmeans_assign`` against its plain version on (xs, cents,
-    aux): every minimum within TOL_REL * |d| + TOL_ABS, and the same
+    aux): every minimum within ``tol[0] * |d| + tol[1]``, and the same
     centroid wherever the two nearest lie more than twice that apart.
     Returns (largest |diff|, largest tolerance, the plain assignment)."""
     import torch
     ak, dk = ka.kmeans_assign_cuda(xs, cents, aux)
     ap, dp = ka.kmeans_assign_plain(xs, cents, aux)
-    tol_x = TOL_REL * dp.abs() + TOL_ABS
+    tol_x = tol[0] * dp.abs() + tol[1]
     err, tol = float((dk - dp).abs().max()), float(tol_x.max())
     if bool(((dk - dp).abs() > tol_x).any()):
         fail(f"{name}: minima beyond their tolerance, max |diff| {err:.3g}")
@@ -2788,6 +2846,571 @@ def run_lm(args, dev, start_path, end_path):
         "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": dh},
         "at_time_len": long, "f32": f32_row}
     return out, row
+
+
+# ---------------------------------------------------------------------------
+# path 7: recsys serving, and two-tower retrieval through Quake
+# ---------------------------------------------------------------------------
+
+def recsys_pipeline(cfg, batch: int, step: int, seed: int):
+    """A ``RecsysPipeline`` batch in the model's vocabulary (the smaller
+    of the two-tower's two) and history length, as numpy."""
+    from repro_torch.data import RecsysPipeline
+    from repro_torch.models.recsys import history_len
+    vocab = getattr(cfg, "vocab", None) or min(cfg.user_vocab,
+                                               cfg.item_vocab)
+    return RecsysPipeline(batch=batch, vocab=vocab, hist_len=history_len(cfg),
+                          seed=seed).batch_at(step)
+
+
+def recsys_user(batch, dev):
+    """The first row of a batch as a ``retrieval_cand`` user context."""
+    import torch
+    return {k: torch.as_tensor(batch[k][:1], device=dev)
+            for k in ("history", "history_mask", "dense")}
+
+
+def check_finite(name, x, shape):
+    import torch
+    if tuple(x.shape) != tuple(shape):
+        fail(f"{name}: shape {tuple(x.shape)}, not {tuple(shape)}")
+    if not bool(torch.isfinite(x).all()):
+        fail(f"{name}: {int((~torch.isfinite(x)).sum())} non-finite values")
+
+
+def wall_ms(fn, reps: int):
+    """Median and largest host-clock ms of ``reps`` warm calls of ``fn``,
+    each ended by a synchronize (after two warm-up calls)."""
+    import statistics
+    import torch
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times), max(times)
+
+
+def recsys_card_vs_cpu(dev, seed) -> dict:
+    """Each smoke config with the same weights on the card and the CPU:
+    the model's forward, its serve output and its retrieval (chunked on
+    the card too) on the pipeline's batches, within RECSYS_TOL * |x| +
+    RECSYS_TOL; then the serve batch with ids out of range both ways,
+    NaN exactly where the CPU has NaN."""
+    import torch
+    from repro_torch.configs import recsys_archs
+    from repro_torch.models import recsys as rs
+    shapes = recsys_archs.RECSYS_SMOKE_SHAPES
+    out = {}
+    for name in RECSYS_ARCHS:
+        cfg = recsys_archs.ARCHS[name][1]()
+        cpu = rs.MODELS[name][1](cfg, device="cpu", generator=torch.Generator(
+            ).manual_seed(seed))
+        card = rs.MODELS[name][1](cfg, device=dev, init=False)
+        card.load_state_dict(cpu.state_dict())
+        np_b = recsys_pipeline(cfg, shapes["serve_bulk"]["batch"], 0, seed)
+        n_cand = shapes["retrieval_cand"]["n_cand"]
+        vocab = getattr(cfg, "vocab", None) or cfg.item_vocab
+        cand = torch.randperm(vocab, generator=torch.Generator().manual_seed(
+            seed))[:n_cand].to(torch.int32)
+        bc, bd = rs.batch_to(np_b, "cpu"), rs.batch_to(np_b, dev)
+        uc, ud = recsys_user(np_b, "cpu"), recsys_user(np_b, dev)
+        fwd = {"din": rs.din_forward, "dlrm-rm2": rs.dlrm_forward,
+               "sasrec": lambda m, b: rs.sasrec_encode(
+                   m, b["history"], b["history_mask"]),
+               "two-tower-retrieval": lambda m, b: torch.cat([
+                   rs.user_repr(m, b), rs.item_repr(m, b["target_item"])])}
+        pairs = {
+            "forward": (fwd[name](card, bd), fwd[name](cpu, bc)),
+            "serve": (rs.recsys_serve(card, bd), rs.recsys_serve(cpu, bc)),
+            "retrieval": (rs.recsys_retrieval(card, ud, cand.to(dev)),
+                          rs.recsys_retrieval(cpu, uc, cand)),
+            "retrieval_chunked": (rs.recsys_retrieval(
+                card, ud, cand.to(dev), chunk=n_cand // 4 + 1),
+                rs.recsys_retrieval(cpu, uc, cand))}
+        errs = {what: check_close(f"recsys {name} smoke {what}, card vs CPU",
+                                  got.cpu(), want, RECSYS_TOL, RECSYS_TOL)
+                for what, (got, want) in pairs.items()}
+        bad = {k: v.copy() for k, v in np_b.items()}
+        bad["history"][0, 0], bad["history"][1, 0] = vocab + 7, -1
+        bad["target_item"][2], bad["sparse"][3, 0] = 10 ** 9, -vocab - 1
+        got = rs.recsys_serve(card, rs.batch_to(bad, dev)).cpu()
+        want = rs.recsys_serve(cpu, rs.batch_to(bad, "cpu"))
+        nan = torch.isnan(want)
+        if not bool(nan.any()) or not torch.equal(torch.isnan(got), nan):
+            fail(f"recsys {name}: out-of-range ids give NaN at "
+                 f"{torch.nonzero(torch.isnan(got)).flatten().tolist()} on "
+                 f"the card, {torch.nonzero(nan).flatten().tolist()} on "
+                 f"the CPU")
+        errs["out_of_range"] = check_close(
+            f"recsys {name} smoke, out-of-range ids (finite rows)",
+            got[~nan], want[~nan], RECSYS_TOL, RECSYS_TOL)
+        errs["nan_rows"] = int(nan.sum())
+        out[name] = errs
+        del cpu, card
+    return out
+
+
+def recsys_serve_model(name, cfg, model, dev, seed, shapes) -> dict:
+    """``serve_p99`` and ``serve_bulk`` on pipeline batches and
+    ``retrieval_cand`` for the p99 batch's first user against
+    ``n_cand`` distinct candidates, RECSYS_CHUNK rows at a time: shapes
+    and finite outputs gated, warm times printed."""
+    import torch
+    from repro_torch.models import recsys as rs
+    card = card_line()
+    out = {}
+    b99, bulk = shapes["serve_p99"]["batch"], shapes["serve_bulk"]["batch"]
+    n_cand = shapes["retrieval_cand"]["n_cand"]
+    t = time.perf_counter()
+    np99 = recsys_pipeline(cfg, b99, 0, seed)
+    np_bulk = recsys_pipeline(cfg, bulk, 1, seed)
+    out["batches_s"] = time.perf_counter() - t
+    p99 = rs.batch_to(np99, dev)
+    y = rs.recsys_serve(model, p99)
+    check_finite(f"recsys {name} serve_p99", y, (b99,))
+    out["p99_ms"], out["p99_ms_max"] = wall_ms(
+        lambda: rs.recsys_serve(model, p99), 10)
+    tb = rs.batch_to(np_bulk, dev)
+    y = rs.recsys_serve(model, tb, chunk=RECSYS_CHUNK)
+    check_finite(f"recsys {name} serve_bulk", y, (bulk,))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rs.recsys_serve(model, tb, chunk=RECSYS_CHUNK)
+    torch.cuda.synchronize()
+    out["bulk_s"] = time.perf_counter() - t
+    out["bulk_rows_per_s"] = bulk / out["bulk_s"]
+    del tb, y
+    vocab = getattr(cfg, "vocab", None) or cfg.item_vocab
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    cand = torch.randperm(vocab, generator=g, device=dev)[:n_cand]
+    user = recsys_user(np99, dev)
+    y = rs.recsys_retrieval(model, user, cand, chunk=RECSYS_CHUNK)
+    check_finite(f"recsys {name} retrieval_cand", y, (n_cand,))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rs.recsys_retrieval(model, user, cand, chunk=RECSYS_CHUNK)
+    torch.cuda.synchronize()
+    out["retrieval_ms"] = (time.perf_counter() - t) * 1e3
+    print(f"recsys [{card}]: {name} serve_p99 (B {b99}) {out['p99_ms']!r} "
+          f"ms a warm call (median of 10, max {out['p99_ms_max']!r}); "
+          f"serve_bulk (B {bulk}) {out['bulk_rows_per_s']!r} rows/s "
+          f"({out['bulk_s']!r} s); retrieval_cand (1 x {n_cand}) "
+          f"{out['retrieval_ms']!r} ms; batches drawn on the host in "
+          f"{out['batches_s']:.2f} s")
+    return out, cand, user
+
+
+def recsys_quake(cfg, model, cand, user, dev, seed):
+    """Two-tower retrieval through Quake (examples/retrieval_serving.py's
+    flow in the port's entry points): encode the candidates and
+    RECSYS_USERS users, the exact top-k by ``retrieval_scores`` and
+    ``torch.topk``, the same through the dense kernel, then a
+    ``QuakeIndex(metric="ip")`` of RECSYS_P partitions on the card:
+    ``search_batch`` probing every partition, APS at target 0.9 (the
+    fused planner: its centroid pass on the card) in f32 and int8, the
+    ``retrieval_cand`` user through per-query ``search``, and a
+    catalogue update of RECSYS_NEW_ITEMS new items through ``insert``.
+    Gates: the dense kernel and the exhaustive search return the GEMM's
+    top-k but at near-ties, int8 overlaps f32 by INT8_OVERLAP, each new
+    item is its own top-1.  Returns (record, the kernels' operands
+    captured on the way: the brute force, the build's assignment on a
+    sample, the APS centroid pass, the first RECSYS_HOLD_ROUNDS f32 APS
+    rounds, the int8 rounds, the insert's assignment)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (BatchedSearchExecutor, QuakeConfig,
+                                  QuakeIndex)
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import scan_topk as st
+    from repro_torch.kernels import scan_topk_indexed as sti
+    from repro_torch.models import recsys as rs
+    cap = {"exhaustive": [], "aps": [], "int8": []}
+    card = card_line()
+    k, out = RECSYS_K, {}
+    n = cand.shape[0]
+
+    def encode(ids):
+        return torch.cat([rs.item_repr(model, ids[i:i + RECSYS_CHUNK])
+                          for i in range(0, ids.shape[0], RECSYS_CHUNK)])
+    items, out["encode_items_ms"] = timed(lambda: encode(cand))
+    np_users = recsys_pipeline(cfg, RECSYS_USERS, 2, seed)
+    users_b = rs.batch_to(np_users, dev)
+    users, out["encode_users_ms"] = timed(lambda: rs.user_repr(model,
+                                                               users_b))
+    (scores, top), gemm_ms = timed(lambda: (
+        lambda sc: (sc, torch.topk(sc, k, dim=1)))(
+            rs.retrieval_scores(model, users_b, items)))
+    out["gemm_topk_ms"] = gemm_ms
+    del scores
+    u1 = rs.user_repr(model, user)
+    # the catalogue update: items the corpus does not hold
+    taken = torch.zeros(model.cfg.item_vocab, dtype=torch.bool, device=dev)
+    taken[cand] = True
+    new_ids = torch.nonzero(~taken)[:RECSYS_NEW_ITEMS, 0]
+    new_items = rs.item_repr(model, new_ids).cpu().numpy()
+    del taken
+    check_finite("recsys two-tower items", items, (n, cfg.embed_dim))
+    check_finite("recsys two-tower users", users,
+                 (RECSYS_USERS, cfg.embed_dim))
+    print(f"recsys [{card}]: encoded {n} items in "
+          f"{out['encode_items_ms']:.1f} ms and {RECSYS_USERS} users in "
+          f"{out['encode_users_ms']:.2f} ms; exact top-{k} "
+          f"(retrieval_scores + torch.topk) {gemm_ms:.2f} ms, "
+          f"{gemm_ms / RECSYS_USERS!r} ms a query")
+    exact_d, exact_i = -top.values, top.indices
+    uq = users.contiguous()
+
+    # the dense kernel over every candidate
+    ops.scan_topk(uq, items, k, metric="ip")
+    (dk, ik), dense_ms = timed(lambda: ops.scan_topk(uq, items, k,
+                                                      metric="ip"))
+    out["dense_ms"] = dense_ms
+    out["dense_err"], _ = compare_topk(
+        f"recsys dense scan_topk vs the exact GEMM ({RECSYS_USERS} x {n})",
+        dk, ik, exact_d, exact_i, (RECSYS_TOL, RECSYS_TOL))
+    cap["brute_force"] = (uq, items)
+
+    # the index: items_np by row, so external ids are rows of ``items``
+    items_np = items.cpu().numpy()
+    users_np = users.cpu().numpy()
+    t = time.perf_counter()
+    idx = QuakeIndex.build(items_np, num_partitions=RECSYS_P,
+                           config=QuakeConfig(metric="ip"), device=dev)
+    out["build_s"] = time.perf_counter() - t
+    p = idx.num_partitions
+    sizes = idx.levels[0].sizes()
+    out["partition_sizes"] = {"min": int(sizes.min()),
+                              "max": int(sizes.max()),
+                              "mean": float(sizes.mean())}
+    # the build's last assignment (its Lloyd loop's GEMM argmin), on a
+    # sample: the kernel is held against it below
+    samp = torch.randperm(n, generator=torch.Generator(device=dev)
+                          .manual_seed(seed + 2), device=dev)[
+        :RECSYS_ASSIGN_SAMPLE]
+    cap["build_assign"] = (
+        items.index_select(0, samp),
+        torch.as_tensor(idx.levels[0].centroids, device=dev),
+        torch.as_tensor(np.asarray([idx.id_map[int(i)] for i in
+                                    samp.cpu().tolist()]), device=dev))
+    print(f"recsys [{card}]: QuakeIndex(metric='ip').build of {n} x "
+          f"{items.shape[1]} into {p} partitions (sizes "
+          f"{out['partition_sizes']}) in {out['build_s']:.2f} s")
+
+    def search(name, fn, gate):
+        fn()                  # warm: the snapshot, the planner's radius
+        r, ms = timed(fn)
+        got = torch.as_tensor(r.ids, device=dev)
+        rec = recall_at(r.ids, exact_i.cpu().numpy())
+        out[name] = {"ms": ms, "ms_per_query": ms / RECSYS_USERS,
+                     "recall@k": rec, "mean_nprobe": float(r.nprobe.mean()),
+                     "rounds": int(r.rounds)}
+        print(f"recsys [{card}]: {name}: recall@{k} {rec!r} against the "
+              f"exact GEMM, mean nprobe {out[name]['mean_nprobe']!r}, "
+              f"rounds {r.rounds}, {ms:.1f} ms "
+              f"({ms / RECSYS_USERS!r} ms a query)")
+        if gate:
+            out[name]["err"], _ = compare_topk(
+                f"recsys {name} vs the exact GEMM", torch.as_tensor(
+                    r.dists, device=dev), got, exact_d, exact_i,
+                (RECSYS_TOL, RECSYS_TOL))
+        return r
+
+    with patched((sti, "scan_topk_indexed", capture_rounds(
+            sti.scan_topk_indexed, cap["exhaustive"], 1, {1, 2}, 1))):
+        search("exhaustive", lambda: idx.search_batch(
+            users_np, k, nprobe=p, rounds=1), gate=True)
+    real_dense = st.scan_topk
+
+    def centroid_pass(queries, xs, valid=None, **kw):
+        if "centroid" not in cap and queries.shape[0] == RECSYS_USERS \
+                and xs.shape[0] == p:
+            cap["centroid"] = (queries.clone(), xs.clone(), valid, dict(kw))
+        return real_dense(queries, xs, valid, **kw)
+    ex32 = BatchedSearchExecutor(idx, planner="fused")
+    with patched((st, "scan_topk", centroid_pass), (
+            sti, "scan_topk_indexed", capture_rounds(
+                sti.scan_topk_indexed, cap["aps"], 1, {1, 2},
+                RECSYS_HOLD_ROUNDS))):
+        r32 = search("aps_f32", lambda: ex32.search(
+            users_np, k, recall_target=0.9), False)
+    ex8 = BatchedSearchExecutor(idx, storage_dtype="int8", planner="fused")
+    with patched((sti, "scan_topk_indexed_q8", capture_rounds(
+            sti.scan_topk_indexed_q8, cap["int8"], 2, {2, 3, 6}, 64))):
+        r8 = search("aps_int8", lambda: ex8.search(
+            users_np, k, recall_target=0.9), False)
+    ov = overlap(r8.ids, r32.ids)
+    out["int8_overlap_f32"] = ov
+    print(f"recsys [{card}]: int8 ids overlap the f32 APS ids by {ov!r}")
+    if ov < INT8_OVERLAP:
+        fail(f"recsys: int8 overlap with f32 {ov:.4f} < {INT8_OVERLAP}")
+    if "centroid" not in cap:
+        fail("recsys: no centroid pass of the APS batch was captured")
+
+    # the retrieval_cand user through per-query search on the card
+    q1 = u1.cpu().numpy()[0]
+    (r1, ms1) = timed(lambda: idx.search(q1, k, recall_target=0.9))
+    want1 = torch.topk(u1 @ torch.as_tensor(items_np, device=dev).T, k,
+                       dim=1).indices.cpu().numpy()
+    out["per_query"] = {"ms": ms1, "nprobe": int(r1.nprobe[0]),
+                        "recall@k": recall_at(r1.ids[None, :], want1),
+                        "vectors_scanned": int(r1.vectors_scanned)}
+    print(f"recsys [{card}]: retrieval_cand user through QuakeIndex.search: "
+          f"recall@{k} {out['per_query']['recall@k']!r}, nprobe "
+          f"{r1.nprobe[0]}, {r1.vectors_scanned} vectors, {ms1:.1f} ms")
+    if len(r1.ids) != k:
+        fail(f"recsys: per-query search returned {len(r1.ids)} ids")
+
+    # the catalogue update: new items routed by the assignment kernel; an
+    # item is its own nearest neighbour under IP (unit norm)
+    new_ext = np.arange(n, n + len(new_items), dtype=np.int64)
+    real_assign = ka.kmeans_assign
+
+    def routed(xs, cents, aux):
+        cap["insert"] = (xs.clone(), cents.clone(), aux.clone())
+        return real_assign(xs, cents, aux)
+    with patched((ka, "kmeans_assign", routed)):
+        _, out["insert_ms"] = timed(lambda: idx.insert(new_items, new_ext))
+    if "insert" not in cap:
+        fail("recsys: the insert launched no assignment")
+    idx.check_invariants()
+    r_new = idx.search_batch(new_items[:64], 1, nprobe=p, rounds=1)
+    if not np.array_equal(r_new.ids[:, 0], new_ext[:64]):
+        fail(f"recsys: {int((r_new.ids[:, 0] != new_ext[:64]).sum())} of "
+             f"64 inserted items are not their own top-1")
+    print(f"recsys [{card}]: inserted {len(new_items)} new items in "
+          f"{out['insert_ms']:.1f} ms; each of the first 64 is its own "
+          f"top-1 in an exhaustive search")
+    # the int8 rounds' snapshot operands stay alive with the capture
+    cap["int8_rounds"] = r8.rounds
+    del idx, ex32, ex8
+    return out, cap
+
+
+def indexed_work(a, kp, q8):
+    """(bytes, operations, active rows, rows read) of one indexed-scan
+    call from its operands: each selected partition's live rows read once
+    (codes, scales and ``aux`` for int8), the queries read and the top-k
+    written once, and 2 d operations per live row of each (query, slot)
+    pair the mask selects."""
+    import torch
+    from repro_torch.kernels import scan_topk_indexed as sti
+    q, data, valid, sel, qmask = ((a[0], a[2], a[6], a[7], a[8]) if q8
+                                  else (a[0], a[1], a[2], a[3], a[4]))
+    b, d = q.shape
+    u = int(sel.shape[0])
+    nrows = sti.live_rows(valid)
+    sel_l = sel.long()
+    active = int((qmask.sum(dim=0).long() * nrows[sel_l].long()).sum())
+    rows = int(nrows[torch.unique(sel_l)].sum())
+    if q8:
+        nbytes = (rows * (d + 4 + 4 + 1) + b * (d + 4) + b * u * (4 + 1)
+                  + 2 * b * kp * 4)
+    else:
+        nbytes = (rows * d * data.element_size() + b * d * 4
+                  + 2 * b * kp * 4 + b * u + rows)
+    return nbytes, 2.0 * active * d, active, rows
+
+
+def recsys_kernel_checks(cap, dev) -> dict:
+    """The four kernels of path 7 held against their plain versions on
+    the path's own operands, and timed there (d = 256, inner product):
+    ``kmeans_assign`` at the insert's routing call and on a sample of the
+    build's points against its centroids (where the assignment must also
+    equal the build's own GEMM argmin away from near-ties),
+    ``scan_topk`` at the APS centroid pass and the brute force (its plain
+    version in blocks of 64 queries), ``scan_topk_indexed`` at the
+    exhaustive search's call and the first RECSYS_HOLD_ROUNDS APS rounds
+    and ``scan_topk_indexed_q8`` at every int8 round (bit-equal).  Each
+    is timed at its largest held APS call (the indexed scan also at the
+    exhaustive call) beside its plain version, the library's version
+    where there is one, and its bound."""
+    import torch
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import scan_topk as st
+    from repro_torch.kernels import scan_topk_indexed as sti
+    tol = (RECSYS_TOL, RECSYS_TOL)
+    checks = {}
+
+    # kmeans_assign
+    xs, c, aux = cap["insert"]
+    err, tol_a, _ = hold_assign(ka, f"recsys kmeans_assign at the insert "
+                                f"(N {xs.shape[0]}, C {c.shape[0]})", xs, c,
+                                aux, tol)
+    xb, cb, a_build = cap["build_assign"]
+    aux_b = (cb * cb).sum(1)
+    err_b, _, ap = hold_assign(ka, f"recsys kmeans_assign on the build's "
+                               f"sample (N {xb.shape[0]})", xb, cb, aux_b,
+                               tol)
+    dist = aux_b[None] - 2.0 * (xb @ cb.T)
+    two = torch.topk(dist, 2, dim=1, largest=False).values
+    clear = (two[:, 1] - two[:, 0]) > 2 * (RECSYS_TOL * two[:, 0].abs()
+                                           + RECSYS_TOL)
+    off = int(((ap.long() != a_build.long()) & clear).sum())
+    if off:
+        fail(f"recsys kmeans_assign: {off} of {xb.shape[0]} sampled points "
+             f"assigned away from the build's own assignment, not at ties")
+    del dist, two
+    ms = cuda_ms(lambda: ka.kmeans_assign_cuda(xs, c, aux))
+    plain_ms = cuda_ms(lambda: ka.kmeans_assign_plain(xs, c, aux))
+    lib_ms = cuda_ms(lambda: torch.argmin(torch.cdist(xs, c), dim=1))
+    n_x, nc, d = xs.shape[0], c.shape[0], xs.shape[1]
+    b_ms, b_by = bound((n_x + nc) * d * 4 + n_x * 8, 2.0 * n_x * nc * d,
+                       F32_FLOPS_PER_S)
+    checks["kmeans_assign"] = {
+        "max_abs_err": max(err, err_b), "tol": tol_a, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "build_sample_agrees": True,
+        "shape": {"N": n_x, "C": nc, "d": d,
+                  "build_sample_N": int(xb.shape[0])}}
+
+    # scan_topk: the centroid pass, then the brute force
+    q, x, v, kw = cap["centroid"]
+    dk, ik = st.scan_topk_cuda(q, x, v, **kw)
+    dp, ip_ = st.scan_topk_plain(q, x, v, **kw)
+    err_c, tol_c = compare_topk(
+        f"recsys scan_topk at the APS centroid pass (Q {q.shape[0]}, N "
+        f"{x.shape[0]}, k_pad {kw['k_pad']})", dk, ik, dp, ip_, tol)
+    uq, items = cap["brute_force"]
+    kp = 128
+    bk, bi = st.scan_topk_cuda(uq, items, None, k_pad=kp, metric="ip")
+    parts, plain_ms = [], 0.0
+    for b0 in range(0, uq.shape[0], 64):
+        r, t_ = timed(lambda: st.scan_topk_plain(uq[b0:b0 + 64], items,
+                                                 None, k_pad=kp,
+                                                 metric="ip"))
+        parts.append(r)
+        plain_ms += t_
+    err_b, _ = compare_topk(
+        f"recsys scan_topk at the brute force (Q {uq.shape[0]}, N "
+        f"{items.shape[0]}, k_pad {kp})", bk, bi,
+        torch.cat([p_[0] for p_ in parts]), torch.cat([p_[1] for p_ in parts]),
+        tol)
+    del parts
+    ms = cuda_ms(lambda: st.scan_topk_cuda(uq, items, None, k_pad=kp,
+                                           metric="ip"), reps=3, warmup=1)
+    lib_ms = cuda_ms(lambda: torch.topk(uq @ items.T, kp, dim=1), reps=3,
+                     warmup=1)
+    nq, n, d = uq.shape[0], items.shape[0], items.shape[1]
+    b_ms, b_by = bound((nq + n) * d * 4 + 2 * nq * kp * 4, 2.0 * nq * n * d,
+                       F32_FLOPS_PER_S)
+    c_ms = cuda_ms(lambda: st.scan_topk_cuda(q, x, v, **kw))
+    c_lib = cuda_ms(lambda: torch.topk(q @ x.T, min(kw["k_pad"],
+                                                    x.shape[0]), dim=1))
+    cb_ms, cb_by = bound((q.shape[0] + x.shape[0]) * d * 4, 2.0 * q.shape[0]
+                         * x.shape[0] * d, F32_FLOPS_PER_S)
+    checks["scan_topk"] = {
+        "max_abs_err": max(err_c, err_b), "tol": tol_c, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+        "bound_by": b_by,
+        "shape": {"Q": nq, "N": n, "d": d, "k_pad": kp, "metric": "ip"},
+        "centroid_pass": {"ms": c_ms, "library_ms": c_lib, "bound_ms": cb_ms,
+                          "bound_by": cb_by, "shape": {
+                              "Q": int(q.shape[0]), "N": int(x.shape[0]),
+                              "k_pad": kw["k_pad"]}}}
+    del bk, bi
+
+    # the indexed scans: f32 APS rounds, then every int8 round bit-equal
+    for name, calls, plain, kern, rows, cols, q8 in (
+            ("scan_topk_indexed", cap["exhaustive"] + cap["aps"],
+             sti.scan_topk_indexed_plain,
+             sti.scan_topk_indexed_cuda, {0, 4}, {3, 4}, False),
+            ("scan_topk_indexed_q8", cap["int8"],
+             sti.scan_topk_indexed_q8_plain, sti.scan_topk_indexed_q8_cuda,
+             {0, 1, 5, 8}, {5, 7, 8}, True)):
+        torch.cuda.empty_cache()
+        held = hold_query_blocks(f"recsys {name}", calls, plain, rows, cols,
+                                 exact=q8, tol=tol)
+        if not q8:          # the exhaustive call: every partition
+            a, kw, _ = calls[0]
+            nbytes, ops_, _, _ = indexed_work(a, kw["k_pad"], False)
+            held["exhaustive"] = dict(zip(("bound_ms", "bound_by"), bound(
+                nbytes, ops_, F32_FLOPS_PER_S)), ms=cuda_ms(
+                    lambda: kern(*a, **kw), reps=3, warmup=1),
+                U=int(a[-1].shape[1]))
+            calls = calls[1:]
+        a, kw, _ = max(calls, key=lambda c_: int(c_[0][-1].sum()))
+        ms = cuda_ms(lambda: kern(*a, **kw))
+        _, plain_ms = timed(lambda: plain(*a, **kw))
+        nbytes, ops_, active, rows_read = indexed_work(a, kw["k_pad"], q8)
+        b_ms, b_by = bound(nbytes, ops_, INT8_OPS_PER_S if q8
+                           else F32_FLOPS_PER_S)
+        lib_ms = None
+        if not q8:
+            sel_l = a[3].long()
+            lib_ms = timed(lambda: library_indexed(
+                a[0], a[1].index_select(0, sel_l), a[2], sel_l, a[4],
+                kw["metric"], kw["k_pad"]))[1]
+        held.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=b_ms, bound_by=b_by, timed_shape={
+                        "B": int(a[-1].shape[0]), "U": int(a[-1].shape[1]),
+                        "S": int(a[2 if q8 else 1].shape[1]),
+                        "d": int(a[0].shape[1]), "k_pad": kw["k_pad"],
+                        "active_pair_rows": active, "rows_read": rows_read,
+                        "metric": kw["metric"]})
+        checks[name] = held
+    for name, c_ in checks.items():
+        print(f"recsys {name} on the path's operands: err "
+              f"{c_['max_abs_err']:.3g}, {c_['ms']:.4f} ms, plain "
+              f"{c_['plain_ms']:.2f} ms, library {c_['library_ms']}, bound "
+              f"{c_['bound_ms']:.4f} ms ({c_['bound_by']})")
+    return checks
+
+
+def run_recsys(args, dev, start_path, end_path) -> dict:
+    """The recsys path: card against CPU at the smoke configs, then each
+    of RECSYS_ARCHS at its published config (one model's tables on the
+    card at a time) through serve_p99, serve_bulk and retrieval_cand, the
+    two-tower's retrieval through Quake, the launch gates and the
+    kernels held on the path's own operands."""
+    import torch
+    from repro_torch.configs import recsys_archs
+    from repro_torch.models import recsys as rs
+    t0 = time.perf_counter()
+    card = card_line()
+    out = {"card": card, "models": {}}
+    out["card_vs_cpu"] = recsys_card_vs_cpu(dev, args.seed)
+    shapes = RECSYS_SHAPES or recsys_archs.RECSYS_SHAPES
+    start_path()
+    torch.cuda.reset_peak_memory_stats()
+    cap = None
+    for name in RECSYS_ARCHS:
+        cfg = recsys_archs.ARCHS[name][RECSYS_SIZE]()
+        g = torch.Generator(device=dev).manual_seed(args.seed)
+        model, build_ms = timed(lambda: rs.MODELS[name][1](
+            cfg, device=dev, generator=g))
+        gb = sum(p_.numel() * p_.element_size()
+                 for p_ in model.parameters()) / 1e9
+        print(f"recsys [{card}]: {name} at {cfg}: {gb:.2f} GB of f32 "
+              f"weights drawn on the card in {build_ms:.1f} ms")
+        rec, cand, user = recsys_serve_model(name, cfg, model, dev,
+                                             args.seed, shapes)
+        rec.update(build_ms=build_ms, weights_gb=gb)
+        if name == "two-tower-retrieval":
+            rec["quake"], cap = recsys_quake(cfg, model, cand, user, dev,
+                                             args.seed)
+        out["models"][name] = rec
+        del model, cand, user
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = end_path("recsys", ("kmeans_assign", "scan_topk",
+                                          "scan_topk_indexed",
+                                          "scan_topk_indexed_q8"))
+    if out["launches"]["flash_attention"]:
+        fail("recsys: the path launched the flash kernel")
+    out["kernel_checks"] = recsys_kernel_checks(cap, dev)
+    del cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["path_s"] = time.perf_counter() - t0
+    print(f"recsys [{card}]: peak device memory {out['peak_gb']:.2f} GB")
+    return out
 
 
 if __name__ == "__main__":

@@ -1,0 +1,51 @@
+"""Deterministic batch pipelines, the JAX package's ``data/pipelines.py``:
+every batch is a pure function of (seed, step), drawn in host numpy, so
+both packages give the same bytes for the same (seed, step).
+``TokenPipeline`` comes with training and ``GraphMinibatchPipeline``
+with the GNN."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict
+
+import numpy as np
+
+
+def _rng(seed: int, step: int) -> np.random.Generator:
+    return np.random.default_rng(
+        np.random.SeedSequence([seed, step + 1_000_003]))
+
+
+@dataclass(frozen=True)
+class RecsysPipeline:
+    """Click-through batches: dense features, Zipfian categorical ids per
+    field, user history sequences, and labels generated from a hidden linear
+    model (so training has signal)."""
+    batch: int
+    n_dense: int = 13
+    n_sparse: int = 26
+    vocab: int = 100_000
+    hist_len: int = 50
+    seed: int = 0
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        rng = _rng(self.seed, step)
+        dense = rng.normal(size=(self.batch, self.n_dense)).astype(np.float32)
+        sparse = (rng.zipf(1.2, size=(self.batch, self.n_sparse))
+                  % self.vocab).astype(np.int32)
+        hist = (rng.zipf(1.2, size=(self.batch, self.hist_len))
+                % self.vocab).astype(np.int32)
+        hist_len = rng.integers(1, self.hist_len + 1, self.batch)
+        hist_mask = (np.arange(self.hist_len)[None, :]
+                     < hist_len[:, None])
+        target = (rng.zipf(1.2, size=(self.batch,)) % self.vocab
+                  ).astype(np.int32)
+        # hidden ground-truth model for labels
+        w = _rng(self.seed, -1).normal(size=self.n_dense)
+        logit = dense @ w + 0.3 * ((sparse.sum(1) % 7) - 3) \
+            + 0.5 * ((target % 5) - 2)
+        label = (logit + rng.normal(size=self.batch) > 0)
+        return {"dense": dense, "sparse": sparse, "history": hist,
+                "history_mask": hist_mask.astype(np.bool_),
+                "target_item": target,
+                "label": label.astype(np.float32)}

@@ -1,12 +1,16 @@
-"""Carry the JAX package's LM weights and config into the port.
+"""Carry the JAX package's LM and recsys weights and configs into the
+port.
 
 ``params_from_jax`` takes the reference's layer-stacked parameter tree
 (``init_params``'s dict, leaves as numpy arrays or anything
 ``np.asarray`` reads, leading axis L on the per-layer leaves) and returns
 a ``Transformer`` holding the same weights; ``config_from_jax`` builds
 the port's config from a dict of the reference config's fields
-(``dataclasses.asdict`` of it).  This is how a JAX checkpoint's weights
-reach the port, and how the parity tests give both packages one model.
+(``dataclasses.asdict`` of it).  ``recsys_params_from_jax`` and
+``recsys_config_from_jax`` do the same for the four recsys models, whose
+trees the port keeps name for name.  This is how a JAX checkpoint's
+weights reach the port, and how the parity tests give both packages one
+model.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .recsys import MODELS
 from .transformer import MoEConfig, Transformer, TransformerConfig
 
 # the reference's mesh fields, attention switches and training's remat,
@@ -82,5 +87,42 @@ def params_from_jax(params: Dict[str, Any], cfg: TransformerConfig,
         stacked = tensor(leaf)
         for i in range(cfg.n_layers):
             state[f"blocks.{i}.{name}"] = stacked[i]
+    model.load_state_dict(state)
+    return model
+
+
+def recsys_config_from_jax(model_name: str, fields: Dict[str, Any]):
+    """The port's config of recsys model ``model_name`` (the reference's
+    registry name: "din", "sasrec", "two-tower-retrieval", "dlrm-rm2")
+    from the reference config's fields, ``tp_axis`` dropped and tuples
+    kept as tuples."""
+    return MODELS[model_name][0](**{
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in fields.items() if k != "tp_axis"})
+
+
+def _flatten(tree, prefix=""):
+    """(dotted name, leaf) of a nested dict/list tree, as
+    ``state_dict`` names a module's ParameterLists and ModuleLists."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield prefix[:-1], tree
+        return
+    for k, v in items:
+        yield from _flatten(v, f"{prefix}{k}.")
+
+
+def recsys_params_from_jax(model_name: str, params: Dict[str, Any], cfg,
+                           device="cuda"):
+    """The port's ``model_name`` model on ``device`` holding ``params``
+    (the reference's init tree, leaves as numpy arrays or anything
+    ``np.asarray`` reads) in f32; the two trees must name the same
+    tensors."""
+    model = MODELS[model_name][1](cfg, device=device, init=False)
+    state = {name: torch.from_numpy(np.array(leaf, dtype=np.float32))
+             for name, leaf in _flatten(params)}
     model.load_state_dict(state)
     return model

@@ -1,15 +1,22 @@
-"""The LM half of the JAX package's ``models/layers.py``, in PyTorch.
+"""The JAX package's ``models/layers.py`` in PyTorch: the LM half (norm,
+rotary embedding, decode attention) and the MLP and embedding half of the
+recsys models (``init_mlp``, ``apply_mlp``, ``embedding_bag``, and
+``take_fill``, ``jnp.take``'s default gather).
 
 Conventions kept from the reference: weights are used as ``x @ W`` with
 ``W`` of shape ``(d_in, d_out)``; the parameter dtype and the compute
 dtype are separate, and every use casts a weight to the compute dtype
 first; reductions that the reference asks in f32 are taken in f32.
+``segment_softmax`` waits for the GNN and ``spec_mlp`` for the sharding
+specs.
 """
 from __future__ import annotations
 
 import math
+from typing import Callable, Optional, Sequence
 
 import torch
+from torch import nn
 
 from ..kernels.flash_attention import NEG_INF
 
@@ -71,3 +78,104 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     out = torch.einsum("bksr,bskd->bkrd", w.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """A plain MLP tower's weights in the reference's tree: ``w[i]`` of
+    shape ``(dims[i], dims[i + 1])`` and ``b[i]`` of ``(dims[i + 1],)``.
+    With a ``generator`` the weights are drawn on its device with std
+    ``1/sqrt(dims[i])`` and the biases are zero; without one they are
+    left unset on ``device``, for loading."""
+
+    def __init__(self, dims: Sequence[int], *,
+                 generator: Optional[torch.Generator] = None,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        pairs = list(zip(dims[:-1], dims[1:]))
+        if generator is not None:
+            device = generator.device
+            w = [dense_init(generator, p, 0, dtype) for p in pairs]
+        else:
+            w = [torch.empty(p, dtype=dtype, device=device) for p in pairs]
+        self.w = nn.ParameterList(nn.Parameter(t, requires_grad=False)
+                                  for t in w)
+        self.b = nn.ParameterList(
+            nn.Parameter(torch.zeros(o, dtype=dtype, device=device),
+                         requires_grad=False) for _, o in pairs)
+
+
+def init_mlp(generator: torch.Generator, dims: Sequence[int],
+             dtype=torch.float32) -> MLP:
+    """Plain MLP tower: dims = (in, h1, ..., out)."""
+    return MLP(dims, generator=generator, dtype=dtype)
+
+
+def apply_mlp(params: MLP, x: Tensor,
+              act: Callable[[Tensor], Tensor] = torch.relu,
+              final_act: bool = False) -> Tensor:
+    """``x @ w + b`` per layer, ``act`` after every layer but the last
+    (and after the last too when ``final_act``)."""
+    n = len(params.w)
+    for i, (w, b) in enumerate(zip(params.w, params.b)):
+        x = x @ w.to(x.dtype) + b.to(x.dtype)
+        if i < n - 1 or final_act:
+            x = act(x)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Gathers and the embedding bag
+# ---------------------------------------------------------------------------
+
+def fill_rows(ids: Tensor, v: int):
+    """``jnp.take``'s default ("fill") indexing of a V-row table: (the
+    rows to read, clipped into ``[0, V)``, as int64; which ids are in
+    range).  An id in ``[-V, -1]`` wraps to ``V + id``; any other id
+    outside ``[0, V)`` is out of range."""
+    ids = ids.long()
+    ids = torch.where(ids < 0, ids + v, ids)
+    return ids.clamp(0, v - 1), (ids >= 0) & (ids < v)
+
+
+def take_fill(table: Tensor, ids: Tensor) -> Tensor:
+    """Rows ``table[ids]`` with ``jnp.take``'s default ("fill") semantics,
+    which every gather of the reference's recsys models outside
+    ``embedding_bag`` has (``fill_rows``); an out-of-range id reads a row
+    of NaN.  The gather only sees clipped rows, so no unchecked id
+    reaches the card's indexing (a device-side assert)."""
+    rows, ok = fill_rows(ids, table.shape[0])
+    out = table.index_select(0, rows.reshape(-1))
+    out = out.reshape(*ids.shape, *table.shape[1:])
+    return out.masked_fill_(~ok.reshape(*ids.shape,
+                                        *(1,) * (table.dim() - 1)),
+                            float("nan"))
+
+
+def embedding_bag(table: Tensor, ids: Tensor, *, mode: str = "sum",
+                  weights: Optional[Tensor] = None,
+                  valid: Optional[Tensor] = None) -> Tensor:
+    """Gather and reduce over the last axis of ``ids``: (..., n) -> (...,
+    D), as the reference's: ids clip into ``[0, V - 1]`` (an id past the
+    table reads its last row, a negative id row 0), rows are scaled by
+    ``weights``, rows where ``valid`` is False are zeroed, and ``mean``
+    divides by ``max(count of valid, 1)`` (by n without ``valid``)."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
+    v = table.shape[0]
+    flat = ids.long().clamp(0, v - 1).reshape(-1)
+    vecs = table.index_select(0, flat).reshape(*ids.shape, table.shape[1])
+    if weights is not None:
+        vecs = vecs * weights[..., None]
+    if valid is not None:
+        vecs = torch.where(valid[..., None], vecs, 0.0)
+    out = torch.sum(vecs, dim=-2)
+    if mode == "mean":
+        if valid is None:
+            return out / max(ids.shape[-1], 1)
+        out = out / torch.clamp(torch.sum(valid, dim=-1, keepdim=True),
+                                min=1)
+    return out

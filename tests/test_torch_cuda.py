@@ -1063,3 +1063,118 @@ def test_one_rank_nccl_mesh_collectives_are_the_identity(dev, tmp_path):
             assert torch.equal(mesh.psum(t.long(), axes), t.long())
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# recsys serving (models/recsys.py) on the card against the CPU
+# ---------------------------------------------------------------------------
+
+RECSYS_TOL = 1e-5     # card vs CPU, f32 with TF32 off: 1e-5 * |x| + 1e-5
+
+
+def _recsys_pair(name, dev):
+    """One smoke config's model on the CPU and the same weights on the
+    card, and one pipeline batch."""
+    from repro_torch.configs import recsys_archs
+    from repro_torch.data import RecsysPipeline
+    from repro_torch.models import recsys as rs
+    cfg = recsys_archs.ARCHS[name][1]()
+    cpu = rs.MODELS[name][1](cfg, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+    card = rs.MODELS[name][1](cfg, device=dev, init=False)
+    card.load_state_dict(cpu.state_dict())
+    batch = RecsysPipeline(batch=64, vocab=1000, hist_len=rs.history_len(cfg),
+                           seed=1).batch_at(0)
+    return rs, cpu, card, batch
+
+
+def _recsys_close(got, want):
+    got, want = got.cpu().double(), want.double()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.allclose(got[ok], want[ok], rtol=RECSYS_TOL,
+                          atol=RECSYS_TOL)
+
+
+@pytest.mark.parametrize("name", ["din", "sasrec", "two-tower-retrieval",
+                                  "dlrm-rm2"])
+def test_recsys_on_the_card_matches_the_cpu(dev, name):
+    """Serve and retrieval (512 candidates, in chunks too) of the same
+    weights on the card and the CPU, then the same batch with ids out of
+    range both ways: NaN where the CPU has NaN, and no device assert."""
+    rs, cpu, card, batch = _recsys_pair(name, dev)
+    cand = torch.randperm(1000, generator=torch.Generator().manual_seed(2))
+    cand = cand[:512].to(torch.int32)
+    user = {k: torch.as_tensor(batch[k][:1])
+            for k in ("history", "history_mask", "dense")}
+    want = rs.recsys_serve(cpu, rs.batch_to(batch, "cpu"))
+    _recsys_close(rs.recsys_serve(card, rs.batch_to(batch, dev)), want)
+    want = rs.recsys_retrieval(cpu, user, cand)
+    user_d = {k: v.to(dev) for k, v in user.items()}
+    _recsys_close(rs.recsys_retrieval(card, user_d, cand.to(dev)), want)
+    _recsys_close(rs.recsys_retrieval(card, user_d, cand.to(dev), chunk=100),
+                  want)
+    bad = {k: v.copy() for k, v in batch.items()}
+    bad["history"][0, 0], bad["history"][1, 0] = 1000 + 7, -1
+    bad["target_item"][2], bad["sparse"][3, 0] = 10 ** 6, -1001
+    want = rs.recsys_serve(cpu, rs.batch_to(bad, "cpu"))
+    got = rs.recsys_serve(card, rs.batch_to(bad, dev))
+    torch.cuda.synchronize()
+    _recsys_close(got, want)
+    assert bool(torch.isnan(want).any())
+
+
+def test_recsys_gathers_out_of_range_on_the_card(dev):
+    from repro_torch.models import layers
+    table = torch.randn(9, 4, generator=torch.Generator().manual_seed(0))
+    ids = torch.tensor([[0, 8, -1, -9], [9, 40, -10, 3]], dtype=torch.int32)
+    want = layers.take_fill(table, ids)
+    got = layers.take_fill(table.to(dev), ids.to(dev))
+    assert torch.equal(torch.isnan(got.cpu()), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(got.cpu()), torch.nan_to_num(want))
+    valid = torch.tensor([[True, True, False, True], [False] * 4])
+    for mode in ("sum", "mean"):
+        want = layers.embedding_bag(table, ids, mode=mode, valid=valid)
+        got = layers.embedding_bag(table.to(dev), ids.to(dev), mode=mode,
+                                   valid=valid.to(dev))
+        assert torch.allclose(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_two_tower_retrieval_through_quake_on_the_card(dev):
+    """A two-tower corpus (20,000 items, d = 64) in ``QuakeIndex(metric=
+    "ip")`` on the card: probing every partition returns the exact GEMM's
+    top-k (ids equal but at near-ties), through the indexed kernel; the
+    int8 storage launches the q8 kernel."""
+    from repro_torch.core import QuakeConfig
+    from repro_torch.data import RecsysPipeline
+    from repro_torch.models import recsys as rs
+    cfg = rs.TwoTowerConfig(user_vocab=5000, item_vocab=20_000, embed_dim=64,
+                            tower_mlp=(128, 64), hist_len=16)
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = rs.TwoTower(cfg, device=dev, generator=g)
+    items = rs.item_repr(model, torch.arange(cfg.item_vocab, device=dev))
+    batch = RecsysPipeline(batch=64, vocab=cfg.user_vocab,
+                           hist_len=cfg.hist_len, seed=2).batch_at(0)
+    users = rs.user_repr(model, rs.batch_to(batch, dev))
+    k = 20
+    scores = users @ items.T
+    top = torch.topk(scores, k, dim=1)
+    idx = QuakeIndex.build(items.cpu().numpy(),
+                           config=QuakeConfig(metric="ip"), device=dev)
+    before = sti.LAUNCHES.count
+    res = idx.search_batch(users.cpu().numpy(), k,
+                           nprobe=idx.num_partitions, rounds=1)
+    assert sti.LAUNCHES.count > before
+    want = top.indices.cpu().numpy()
+    exact = scores.double().cpu().numpy()
+    rows = np.arange(len(want))[:, None]
+    differ = res.ids != want
+    gap = np.abs(exact[rows, res.ids] - exact[rows, want])
+    assert (gap[differ] <= 4e-5).all()
+    np.testing.assert_allclose(-res.dists, exact[rows, res.ids], rtol=1e-5,
+                               atol=1e-5)
+    before = sti.LAUNCHES_Q8.count
+    r8 = idx.search_batch(users.cpu().numpy(), k, recall_target=0.9,
+                          storage_dtype="int8")
+    assert sti.LAUNCHES_Q8.count > before
+    assert r8.ids.shape == (64, k)
