@@ -5,9 +5,9 @@
                           [--wiki-n 1000000] [--months 12]
                           [--serve-months 12]
 
-With no arguments it runs seven paths, each with the kernels' launch
+With no arguments it runs nine paths, each with the kernels' launch
 counts set to 0 just before it and read just after (path 6 runs after
-the kernel checks and before path 3, path 7 last):
+the kernel checks and before path 3, paths 7-9 last, in that order):
 
 1. The main path, the SIFT1M-shaped cell: 1,000,000 clustered synthetic
    vectors of d=128 (L2; a mixture of 8192 Gaussian clusters with sizes
@@ -115,6 +115,37 @@ the kernel checks and before path 3, path 7 last):
    pass and the brute force; the first 3 f32 APS rounds; every int8
    round, bit-equal) and timed there, at d = 256 under inner product.
 
+8. MoE LM serving (``models/transformer.moe_ffn``): qwen3-moe-235b-a22b
+   and then llama4-scout (``MOE_MODELS``), one model on the card at a
+   time, at the reference's capacity factor (1.25) and group (512).
+   First exact f32 checks at full width and two layers: prefill logits
+   with the flash kernel against the plain attention (the share of
+   (token, choice) pairs dropped per layer printed), and, at capacity
+   factor E / top_k (nothing dropped), decode at 4 positions against a
+   re-prefill over t + 1 tokens.  Then the smoke config with the same
+   weights on the card and the CPU (prefill and decode, also with a zero
+   router: every choice ties, most pairs drop) within 1e-5 * |x| + 1e-5.
+   Then the model served in bf16 at full width and ``MOE_LAYERS`` layers
+   from seeded random weights: ``prefill`` of 4 prompts of 4,096 tokens,
+   32 greedy ``decode_step``s, gates of one flash launch per layer per
+   prefill and none per step; prefill tokens/s, ms per step, the drop
+   share and ``moe_ffn``'s and the flash kernel's shares of a warm
+   prefill's device time.  The flash kernel is held against its plain
+   version at layer 0's operands and timed beside
+   ``scaled_dot_product_attention`` there (GQA 64/4 and 40/8).
+9. The GAT forward (``models/gnn.py``, gat-cora: 2 layers, 8 heads of 8,
+   7 classes) at the four ``GNN_SHAPES``, each graph drawn on the host
+   by ``data/graphs.py`` from the seed: a 2,708-node community graph
+   (1,433 features), one ``GraphMinibatchPipeline`` batch (1,024 seeds,
+   fanouts 15/10, 602 features) of a power-law graph of Reddit's 232,965
+   nodes, a power-law graph of ogbn-products' 2,449,029 nodes and about
+   61.9 M edges (100 features, drawn on the card), and 128 molecules
+   pooled by ``graph_pool_logits``.  Gates: shapes, finite values, two
+   forwards bit-equal, the card equal to the CPU at ``full_graph_sm``
+   and ``molecule`` and at every smoke shape (1e-5 * |x| + 1e-5), and no
+   kernel of the port launched.  It prints the warm forward's ms and
+   edges/s, the host's drawing seconds and peak device memory.
+
 It then holds each CUDA kernel against its plain PyTorch version at the
 shapes the paths gave it, times both and a one-library-call yardstick,
 profiles one warm ``search_batch``, and prints one JSON line of kernels,
@@ -220,6 +251,25 @@ RECSYS_SIZE, RECSYS_SHAPES, RECSYS_CHUNK = 0, None, 65_536
 RECSYS_USERS, RECSYS_K, RECSYS_P = 512, 100, 1000
 RECSYS_NEW_ITEMS, RECSYS_ASSIGN_SAMPLE, RECSYS_HOLD_ROUNDS = 10_000, 65_536, 3
 RECSYS_TOL = 1e-5
+# the MoE path (path 8): (published config, smoke config) of
+# repro_torch.configs.lm_archs, one model on the card at a time, served in
+# bf16 at full width and MOE_LAYERS layers (the depth cut: 94 and 48
+# layers would need 470 and 215 GB of weights), its exact f32 checks at
+# MOE_CHECK_LAYERS; the same prompts and decode steps as the LM path.
+# Card against CPU at the smoke configs within MOE_TOL * |x| + MOE_TOL
+MOE_MODELS = (("qwen3_moe_235b", "qwen3_moe_smoke"),
+              ("llama4_scout", "llama4_scout_smoke"))
+MOE_LAYERS, MOE_CHECK_LAYERS = 10, 2
+MOE_TOL = 1e-5
+# the GNN path (path 9): gat_cora at the four GNN_SHAPES; minibatch_lg
+# samples GNN_BATCH_NODES seeds at GNN_FANOUTS from a power-law graph of
+# Reddit's node count at a mean degree cut from Reddit's ~492 (symmetrised
+# to about twice GNN_REDDIT_DEGREE); card against CPU at full width for
+# GNN_CPU_SHAPES and at every smoke shape, within GNN_TOL * |x| + GNN_TOL
+GNN_REDDIT_NODES, GNN_REDDIT_DEGREE = 232_965, 25
+GNN_BATCH_NODES, GNN_FANOUTS = 1024, (15, 10)
+GNN_CPU_SHAPES = ("full_graph_sm", "molecule")
+GNN_TOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -382,11 +432,13 @@ def warm_then_time(fn, counters=None, during=contextlib.nullcontext):
 
 
 def profile_call(fn, what: str = "search_batch", match: str = "",
-                 out_dir=OUT_DIR) -> dict:
+                 out_dir=OUT_DIR, ranges=()) -> dict:
     """Device busy time of one warm call of ``fn`` under torch.profiler,
-    beside its wall time, the kernels that took the most device time, and
-    the device time of the kernels whose name holds ``match``.  The trace
-    goes to ``out_dir`` (none when it is None)."""
+    beside its wall time, the kernels that took the most device time, the
+    device time of the kernels whose name holds ``match``, and the device
+    span of each ``record_function`` range named in ``ranges`` (summed
+    over its calls; the kernels inside take all but the launch gaps).
+    The trace goes to ``out_dir`` (none when it is None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -397,10 +449,16 @@ def profile_call(fn, what: str = "search_batch", match: str = "",
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    rows = []   # kernels only: the ops that launch them repeat their time
+    rows, spans = [], {r: 0.0 for r in ranges}
     for e in prof.key_averages():
+        # kernels only: the ops that launch them repeat their time, and a
+        # range's device-side span covers its kernels again
         dev_us = getattr(e, "self_device_time_total", 0.0) or 0.0
-        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
+        if e.device_type != torch.autograd.DeviceType.CUDA or dev_us <= 0:
+            continue
+        if e.key in spans:
+            spans[e.key] += dev_us / 1e3
+        else:
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
@@ -416,6 +474,8 @@ def profile_call(fn, what: str = "search_batch", match: str = "",
     if match:
         out["match_ms"] = sum(r[0] for r in rows if match in r[2]) \
             if rows else None
+    if ranges:
+        out["range_ms"] = spans
     print(f"profile of one warm {what}: wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms" if rows else
           "profile: the profiler saw no device time (not measured)")
@@ -1216,6 +1276,22 @@ def main() -> int:
         row["recsys_launches"] = record["recsys"]["launches"][base]
         # held against the plain version on the recsys path's own operands
         row["recsys_check"] = record["recsys"]["kernel_checks"].get(base)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- path 8: MoE LM serving (qwen3-moe-235b-a22b, llama4-scout) ------
+    record["moe"] = run_moe(args, dev, start_path, end_path)
+    print(f"moe path took {record['moe']['path_s']:.1f} s")
+    for row in kernels:
+        if row["name"] == "flash_attention":
+            row["moe"] = {n_: m_["flash"]
+                          for n_, m_ in record["moe"]["models"].items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- path 9: the GAT forward at its four graph shapes -----------------
+    record["gnn"] = run_gnn(args, dev, start_path, end_path)
+    print(f"gnn path took {record['gnn']['path_s']:.1f} s")
     checks = record["engine"]["engine_check"]
     for row in kernels:      # each kernel's launches on the engine path
         row["engine_launches"] = path_launches["engine"][
@@ -1274,6 +1350,32 @@ def library_indexed(q, blocks, valid, sel_l, qmask, metric, kp):
         m = qmask[b0:b0 + 64].repeat_interleave(blocks.shape[1], 1)
         dist = torch.where(m, dist, MASK_DIST)
         out.append(torch.topk(dist, kp, dim=1, largest=False))
+    return out
+
+
+def library_indexed_q8(q_codes, q_scales, codes, scales, aux, qc, valid,
+                       sel, qmask, *, k_pad, metric):
+    """The int8 scan's function (``ref.scan_indexed_q8_ref``) as library
+    calls, from the kernel's own operands: the union's codes gathered and
+    dequantized to f32, the queries dequantized, ``torch.topk`` over a
+    ``torch.matmul`` of 64 queries at a time plus ``qc`` and ``aux``."""
+    import torch
+    from repro_torch.kernels.ref import MASK_DIST
+    sel = sel.long()
+    s, d = codes.shape[1], codes.shape[2]
+    rows = (codes.index_select(0, sel).float()
+            * scales.index_select(0, sel)[..., None]).reshape(-1, d)
+    aux_u = aux.index_select(0, sel).reshape(-1)
+    ok = valid.index_select(0, sel).reshape(-1)
+    q = q_codes.float() * q_scales[:, None]
+    coef = -2.0 if metric == "l2" else -1.0
+    out = []
+    for b0 in range(0, q.shape[0], 64):
+        qx = qc[b0:b0 + 64].repeat_interleave(s, 1) \
+            + torch.matmul(q[b0:b0 + 64], rows.T)
+        keep = ok & qmask[b0:b0 + 64].repeat_interleave(s, 1)
+        dist = torch.where(keep, aux_u + coef * qx, MASK_DIST)
+        out.append(torch.topk(dist, k_pad, dim=1, largest=False))
     return out
 
 
@@ -3340,8 +3442,9 @@ def recsys_kernel_checks(cap, dev) -> dict:
         nbytes, ops_, active, rows_read = indexed_work(a, kw["k_pad"], q8)
         b_ms, b_by = bound(nbytes, ops_, INT8_OPS_PER_S if q8
                            else F32_FLOPS_PER_S)
-        lib_ms = None
-        if not q8:
+        if q8:
+            lib_ms = timed(lambda: library_indexed_q8(*a, **kw))[1]
+        else:
             sel_l = a[3].long()
             lib_ms = timed(lambda: library_indexed(
                 a[0], a[1].index_select(0, sel_l), a[2], sel_l, a[4],
@@ -3410,6 +3513,450 @@ def run_recsys(args, dev, start_path, end_path) -> dict:
     torch.cuda.empty_cache()
     out["path_s"] = time.perf_counter() - t0
     print(f"recsys [{card}]: peak device memory {out['peak_gb']:.2f} GB")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# path 8: MoE LM serving (qwen3-moe-235b-a22b, llama4-scout)
+# ---------------------------------------------------------------------------
+
+def moe_card_vs_cpu(name, dev, seed) -> dict:
+    """The smoke config ``name`` with the same weights on the card and the
+    CPU: ``prefill`` of a (2, 40) prompt (two groups of 64, the second
+    padded) and one ``decode_step`` of two rows at different lengths,
+    within MOE_TOL * |x| + MOE_TOL; then the same with a zero router
+    (uniform probabilities: every choice ties, and every token asks for
+    experts 0..k-1, so most are dropped)."""
+    import torch
+    from torch.nn import functional as F
+    from repro_torch.configs import lm_archs
+    from repro_torch.models import Transformer
+    cfg = getattr(lm_archs, name)()
+    out = {}
+    for case in ("random", "zero_router"):
+        cpu = Transformer(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(seed))
+        if case == "zero_router":
+            for blk in cpu.blocks:
+                blk.moe.router.data.zero_()
+        card = Transformer(cfg, device=dev, init=False)
+        card.load_state_dict(cpu.state_dict())
+        toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                             generator=torch.Generator().manual_seed(seed))
+        lg, (ck, cv) = cpu.prefill(toks)
+        lg_d, (ck_d, cv_d) = card.prefill(toks.to(dev))
+        errs = {"prefill": check_close(
+            f"moe {name} {case} prefill logits, card vs CPU", lg_d.cpu(), lg,
+            MOE_TOL, MOE_TOL)}
+        ck, cv = (F.pad(t_, (0, 0, 0, 0, 0, 1)) for t_ in (ck, cv))
+        ck_d, cv_d = ck.to(dev), cv.to(dev)
+        tok, cl = torch.tensor([3, 7]), torch.tensor([40, 37])
+        want, _ = cpu.decode_step(tok, ck, cv, cl)
+        got, _ = card.decode_step(tok.to(dev), ck_d, cv_d, cl.to(dev))
+        errs["decode"] = check_close(
+            f"moe {name} {case} decode logits, card vs CPU", got.cpu(), want,
+            MOE_TOL, MOE_TOL)
+        out[case] = errs
+    return out
+
+
+@contextlib.contextmanager
+def moe_recording(records):
+    """Append each MoE layer call's kept mask of its real tokens' (token,
+    choice) pairs, (B*S, k) on the device, to ``records``, and mark each
+    ``moe_ffn`` call as a profiler range of that name."""
+    import torch
+    from repro_torch.models import transformer as tr
+    real_route, real_ffn = tr.route, tr.moe_ffn
+
+    def route(moe, x, mcfg):
+        r = real_route(moe, x, mcfg)
+        t = x.shape[0] * x.shape[1]
+        records.append((r.slot < r.cap).reshape(-1, mcfg.top_k)[:t])
+        return r
+
+    def moe_ffn(moe, x, cfg):
+        with torch.profiler.record_function("moe_ffn"):
+            return real_ffn(moe, x, cfg)
+
+    with patched((tr, "route", route), (tr, "moe_ffn", moe_ffn)):
+        yield
+
+
+def drop_shares(records):
+    """(share of (token, choice) pairs dropped, share of tokens that lost
+    every choice) for each recorded layer call."""
+    return [(1.0 - float(k.float().mean()), float((~k).all(1).float().mean()))
+            for k in records]
+
+
+def run_moe_model(name, smoke, args, dev, start_path, end_path) -> dict:
+    """One MoE model of path 8: exact f32 checks at full width and
+    MOE_CHECK_LAYERS layers, card against CPU at its smoke config, then
+    serving at full width and MOE_LAYERS layers in bf16, then the flash
+    kernel held and timed at layer 0's operands."""
+    import dataclasses
+    import statistics
+    import numpy as np
+    import torch
+    from torch.nn import functional as F
+    from repro_torch.configs import lm_archs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Transformer, param_count
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    base = getattr(lm_archs, name)()
+    mcfg = base.moe
+    h, kh, dh, vocab = (base.n_heads, base.n_kv_heads, base.head_dim,
+                        base.vocab_size)
+
+    def plain_attention(q, k, v, *, causal, q_block, k_block):
+        qb, kb = fa.TILES[q.dtype]
+        return fa.flash_attention_plain(q, k, v, causal=causal,
+                                        q_block=qb, k_block=kb)
+
+    # -- exact f32 checks: full width, MOE_CHECK_LAYERS layers -------------
+    cfg32 = dataclasses.replace(base, n_layers=MOE_CHECK_LAYERS,
+                                param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    m32 = Transformer(cfg32, device=dev, generator=g)
+    s32, steps32 = 512, 4
+    toks = torch.randint(0, vocab, (2, s32 + steps32), generator=g,
+                         device=dev)
+    records = []
+    with moe_recording(records):
+        lg_k, _ = m32.prefill(toks[:, :s32])
+    out["f32_drop_share"] = drop_shares(records)
+    before = fa.LAUNCHES.count
+    lg_p, _ = m32.prefill(toks[:, :s32], attention=plain_attention)
+    if fa.LAUNCHES.count != before:
+        fail(f"moe {name} f32 prefill with plain attention launched the "
+             f"flash kernel")
+    errs = {"f32_prefill_kernel_vs_plain": check_close(
+        f"moe {name} f32 prefill logits, kernel vs plain attention", lg_k,
+        lg_p, LM_TOL, LM_TOL)}
+    # capacity_factor E / top_k: cap >= g, nothing dropped, so a token's
+    # MoE output depends on that token alone
+    m32.cfg = dataclasses.replace(cfg32, moe=dataclasses.replace(
+        mcfg, capacity_factor=mcfg.n_experts / mcfg.top_k))
+    _, (ck, cv) = m32.prefill(toks[:, :s32])
+    pad = (0, 0, 0, 0, 0, steps32)
+    ck, cv = F.pad(ck, pad), F.pad(cv, pad)
+    for t_ in range(s32, s32 + steps32):
+        lg_d, (ck, cv) = m32.decode_step(
+            toks[:, t_], ck, cv, torch.full((2,), t_, device=dev))
+        lg_r, _ = m32.prefill(toks[:, :t_ + 1])
+        errs[f"f32_decode_vs_reprefill@{t_}"] = check_close(
+            f"moe {name} f32 decode at position {t_} vs re-prefill "
+            f"(capacity_factor {m32.cfg.moe.capacity_factor:g})", lg_d, lg_r,
+            LM_TOL, LM_TOL)
+    out["f32_checks"] = errs
+    print(f"moe {name} f32: drop share per layer at capacity_factor "
+          f"{mcfg.capacity_factor:g}, pairs / whole tokens: "
+          f"{[(round(a, 4), round(b, 4)) for a, b in out['f32_drop_share']]}")
+    del m32, ck, cv, lg_k, lg_p, lg_d, lg_r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["card_vs_cpu"] = moe_card_vs_cpu(smoke, dev, args.seed)
+
+    # -- serving at full width, MOE_LAYERS layers, bf16 ---------------------
+    cfg = dataclasses.replace(base, n_layers=MOE_LAYERS,
+                              param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16)
+    n_l, b, s, n_dec = cfg.n_layers, LM_PROMPTS, LM_PROMPT_LEN, LM_DECODE
+    start_path()
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    model, out["build_ms"] = timed(lambda: Transformer(cfg, device=dev,
+                                                       generator=g))
+    out["weights_gb"] = sum(p.numel() * p.element_size()
+                            for p in model.parameters()) / 1e9
+    print(f"moe {name} at {n_l} of {base.n_layers} layers, d_model "
+          f"{cfg.d_model}, {h}/{kh} heads of {dh}, {mcfg.n_experts} experts "
+          f"top-{mcfg.top_k} of {mcfg.d_ff} (+{mcfg.n_shared} shared), "
+          f"capacity_factor {mcfg.capacity_factor:g}, group {mcfg.group_size},"
+          f" bf16: {param_count(cfg)} parameters, {out['weights_gb']:.2f} GB,"
+          f" drawn in {out['build_ms']:.1f} ms")
+    prompts = torch.randint(0, vocab, (b, s), generator=g, device=dev)
+    captured = {}
+
+    def capture(q, k, v, **kw):
+        if not captured:
+            captured[0] = (q.clone(), k.clone(), v.clone())
+        return fa.flash_attention(q, k, v, **kw)
+
+    before = fa.LAUNCHES.count
+    (logits, (ck, cv)), out["prefill_first_ms"] = timed(
+        lambda: model.prefill(prompts, attention=capture))
+    prefill_launches = fa.LAUNCHES.count - before
+    check_finite(f"moe {name} prefill logits", logits, (b, vocab))
+    shape = (n_l, b, s + n_dec, kh, dh)
+    ckp = torch.zeros(shape, dtype=ck.dtype, device=dev)
+    cvp = torch.zeros(shape, dtype=cv.dtype, device=dev)
+    ckp[:, :, :s], cvp[:, :, :s] = ck, cv
+    del ck, cv
+    tok = logits.argmax(-1)
+    step_ms, dec_launches = [], []
+    cache_len = torch.full((b,), s, device=dev)
+    for i in range(n_dec):
+        before = fa.LAUNCHES.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = model.decode_step(tok, ckp, cvp, cache_len)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        dec_launches.append(fa.LAUNCHES.count - before)
+        check_finite(f"moe {name} decode step {i + 1} logits", lg, (b, vocab))
+        tok = lg.argmax(-1)
+        cache_len += 1
+    got = end_path(f"moe {name}", ("flash_attention",))
+    out.update(prefill_launches=prefill_launches,
+               decode_launches=dec_launches, decode_ms=step_ms,
+               decode_ms_median=statistics.median(step_ms))
+    if prefill_launches != n_l or got["flash_attention"] != n_l:
+        fail(f"moe {name}: {prefill_launches} flash launches in the "
+             f"prefill, {got['flash_attention']} on the path, not {n_l}")
+    if any(dec_launches):
+        fail(f"moe {name}: a decode step launched the flash kernel")
+    _, out["prefill_warm_ms"] = timed(lambda: model.prefill(prompts))
+    records = []
+    with moe_recording(records):
+        prof = profile_call(lambda: model.prefill(prompts),
+                            f"moe_prefill_{name}",
+                            "flash_fwd_bf16_mma_kernel", ranges=("moe_ffn",))
+    out["drop_share"] = drop_shares(records[:n_l])
+    out["prefill_tokens_per_s"] = b * s / out["prefill_warm_ms"] * 1e3
+    if prof["device_busy_ms"]:
+        prof["moe_share"] = prof["range_ms"]["moe_ffn"] / \
+            prof["device_busy_ms"]
+        prof["flash_share"] = prof["match_ms"] / prof["device_busy_ms"]
+    out["profile"] = prof
+    out["peak_gb_serving"] = torch.cuda.max_memory_allocated() / 1e9
+    pairs = [a for a, _ in out["drop_share"][:n_l]]
+    print(f"moe {name}: prefill of {b} x {s} tokens {out['prefill_warm_ms']:.1f}"
+          f" ms warm ({out['prefill_first_ms']:.1f} first), "
+          f"{out['prefill_tokens_per_s']:.0f} tokens/s; decode "
+          f"{out['decode_ms_median']:.2f} ms a step (median of {n_dec}); "
+          f"flash launches {prefill_launches} a prefill, "
+          f"{sorted(set(dec_launches))} a step; peak "
+          f"{out['peak_gb_serving']:.2f} GB")
+    print(f"moe {name}: pairs dropped per layer in the warm prefill "
+          f"{[round(x, 4) for x in pairs]} (mean {np.mean(pairs):.4f})")
+    if prof["device_busy_ms"]:
+        print(f"moe {name}: moe_ffn takes {prof['range_ms']['moe_ffn']:.1f} "
+              f"ms and the flash kernel {prof['match_ms']:.1f} ms of the warm "
+              f"prefill's {prof['device_busy_ms']:.1f} ms of device time "
+              f"({prof['moe_share']:.1%}, {prof['flash_share']:.1%})")
+    del model, ckp, cvp, logits, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the flash kernel at layer 0's operands ------------------------------
+    q, k, v = captured.pop(0)
+    bq, bk = fa.TILES[torch.bfloat16]
+    o_k = fa.flash_attention_cuda(q, k, v, causal=True)
+    o_p, plain_ms = timed(lambda: fa.flash_attention_plain(
+        q, k, v, causal=True, q_block=bq, k_block=bk))
+    err = check_close(f"flash_attention bf16, {name} layer 0's operands",
+                      o_k, o_p, FLASH_BF16_REL, FLASH_BF16_ABS)
+    del o_k, o_p
+    ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True),
+                 reps=5, warmup=1)
+    views = [x.transpose(1, 2) for x in (q, k, v)]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        *views, is_causal=True, enable_gqa=True), reps=5, warmup=1)
+    bound_ms, bound_by = flash_bound(b, s, s, h, kh, dh, True, 2)
+    out["flash"] = {"shape": {"B": b, "S": s, "H": h, "KH": kh, "D": dh},
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "max_abs_err": err, "launches": got["flash_attention"]}
+    print(f"flash_attention at {name}'s {(b, s, h, kh, dh)}: {ms:.4f} ms "
+          f"(plain {plain_ms:.1f}, library {lib_ms:.4f}, bound "
+          f"{bound_ms:.4f} ms by {bound_by})")
+    del q, k, v, views
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def run_moe(args, dev, start_path, end_path) -> dict:
+    """Path 8: each of MOE_MODELS in turn, one model on the card at a
+    time."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"card": card_line(), "models": {}}
+    for name, smoke in MOE_MODELS:
+        out["models"][name] = run_moe_model(name, smoke, args, dev,
+                                            start_path, end_path)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["path_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# path 9: the GAT forward at the four graph shapes
+# ---------------------------------------------------------------------------
+
+def gnn_graph(shape, sh, seed):
+    """(feats (N, d_feat) numpy or None to draw on the card, src, dst,
+    graph_of or None, facts) of one GNN_SHAPES entry, drawn in host numpy
+    by the port's data/graphs.py."""
+    import numpy as np
+    from repro_torch.data import GraphMinibatchPipeline, graphs
+    if shape == "full_graph_sm":
+        g, feats, _ = graphs.community_graph(
+            sh["n_nodes"], sh["n_edges"] / sh["n_nodes"] / 2,
+            d_feat=sh["d_feat"], seed=seed)
+        src, dst = graphs.to_edges(g)
+        return feats, src, dst, None, {}
+    if shape == "minibatch_lg":
+        g = graphs.power_law_graph(GNN_REDDIT_NODES, GNN_REDDIT_DEGREE,
+                                   seed=seed)
+        rng = np.random.default_rng(seed)
+        feats = rng.standard_normal((g.n_nodes, sh["d_feat"]),
+                                    dtype=np.float32)
+        labels = rng.integers(0, 41, g.n_nodes).astype(np.int32)
+        batch = GraphMinibatchPipeline(
+            g, feats, labels, GNN_BATCH_NODES, GNN_FANOUTS,
+            seed=seed).batch_at(0)
+        n, e = int(batch["n_nodes"]), len(batch["src"])
+        if n > sh["n_nodes"] or e > sh["n_edges"]:
+            fail(f"gnn minibatch_lg: {n} nodes and {e} edges, past the "
+                 f"shape's padded {sh['n_nodes']} / {sh['n_edges']}")
+        return batch["feats"], batch["src"], batch["dst"], None, {
+            "graph_nodes": g.n_nodes, "graph_edges": g.n_edges}
+    if shape == "ogb_products":
+        g = graphs.power_law_graph(sh["n_nodes"],
+                                   sh["n_edges"] / sh["n_nodes"] / 2,
+                                   seed=seed)
+        if abs(g.n_edges - sh["n_edges"]) > 0.01 * sh["n_edges"]:
+            fail(f"gnn ogb_products: {g.n_edges} edges, not within 1% of "
+                 f"{sh['n_edges']}")
+        src, dst = graphs.to_edges(g)
+        return None, src, dst, None, {}
+    src, dst, feats, graph_of = graphs.molecule_batch(
+        sh["n_graphs"], sh["n_nodes"], sh["n_edges"], sh["d_feat"],
+        seed=seed)
+    return feats, src, dst, graph_of, {}
+
+
+def gnn_run(model, shape, sh, feats, src, dst, graph_of):
+    """The shape's forward: node logits, or graph logits for a pooled
+    shape."""
+    from repro_torch.models import gnn
+    if sh["kind"] == "pooled":
+        return gnn.graph_pool_logits(model, feats, src, dst, graph_of,
+                                     sh["n_graphs"])
+    return gnn.forward(model, feats, src, dst)
+
+
+def gnn_card_vs_cpu(dev, seed) -> dict:
+    """gat_cora_smoke at each GNN_SMOKE_SHAPES entry's d_feat on a graph of
+    that shape, the same weights on the card and the CPU: equal within
+    GNN_TOL * |x| + GNN_TOL."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import gnn_archs
+    from repro_torch.data import graphs
+    from repro_torch.models import GAT
+    out = {}
+    for shape, sh in gnn_archs.GNN_SMOKE_SHAPES.items():
+        if sh["kind"] == "pooled":
+            src, dst, feats, graph_of = graphs.molecule_batch(
+                sh["n_graphs"], sh["n_nodes"], sh["n_edges"], sh["d_feat"],
+                seed=seed)
+        else:
+            n = sh["n_nodes"]
+            src, dst = graphs.to_edges(graphs.power_law_graph(
+                n, sh["n_edges"] / n / 2, seed=seed))
+            feats = np.random.default_rng(seed).normal(
+                size=(n, sh["d_feat"])).astype(np.float32)
+            graph_of = None
+        cfg = dataclasses.replace(gnn_archs.gat_cora_smoke(),
+                                  d_in=sh["d_feat"])
+        cpu = GAT(cfg, device="cpu",
+                  generator=torch.Generator().manual_seed(seed))
+        card = GAT(cfg, device=dev, init=False)
+        card.load_state_dict(cpu.state_dict())
+        args = [None if a is None else torch.as_tensor(a)
+                for a in (feats, src, dst, graph_of)]
+        want = gnn_run(cpu, shape, sh, *args)
+        got = gnn_run(card, shape, sh, *[None if a is None else a.to(dev)
+                                         for a in args])
+        out[shape] = check_close(f"gnn smoke {shape}, card vs CPU", got.cpu(),
+                                 want, GNN_TOL, GNN_TOL)
+    return out
+
+
+def run_gnn(args, dev, start_path, end_path) -> dict:
+    """Path 9: the GAT forward (gat_cora at each shape's d_feat, weights
+    drawn on the card from the seed) at the four GNN_SHAPES: the graph
+    drawn on the host, a first and a warm forward, a second forward
+    bit-equal to the first, shapes and finite values, and the card
+    against the CPU at the full_graph_sm and molecule shapes (full width)
+    and at the smoke shapes."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import gnn_archs
+    from repro_torch.models import GAT
+    t_path = time.perf_counter()
+    card = card_line()
+    out = {"card": card, "card_vs_cpu": gnn_card_vs_cpu(dev, args.seed),
+           "shapes": {}}
+    start_path()
+    for shape, sh in gnn_archs.GNN_SHAPES.items():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        feats, src, dst, graph_of, facts = gnn_graph(shape, sh, args.seed)
+        draw_s = time.perf_counter() - t0
+        cfg = dataclasses.replace(gnn_archs.gat_cora(), d_in=sh["d_feat"])
+        g = torch.Generator(device=dev).manual_seed(args.seed)
+        model = GAT(cfg, device=dev, generator=g)
+        n_nodes = len(feats) if feats is not None else sh["n_nodes"]
+        if feats is None:
+            feats_d = torch.randn((n_nodes, sh["d_feat"]), generator=g,
+                                  device=dev)
+        else:
+            feats_d = torch.as_tensor(feats, device=dev)
+        dev_args = (feats_d, torch.as_tensor(src, device=dev),
+                    torch.as_tensor(dst, device=dev),
+                    None if graph_of is None else
+                    torch.as_tensor(graph_of, device=dev))
+        first, first_ms = timed(lambda: gnn_run(model, shape, sh, *dev_args))
+        rows = sh["n_graphs"] if sh["kind"] == "pooled" else n_nodes
+        check_finite(f"gnn {shape} logits", first, (rows, cfg.n_classes))
+        warm, warm_ms = timed(lambda: gnn_run(model, shape, sh, *dev_args))
+        if not torch.equal(first, warm):
+            fail(f"gnn {shape}: two forwards differ in "
+                 f"{int((first != warm).sum())} entries")
+        rec = {"nodes": n_nodes, "edges": len(src), "d_feat": sh["d_feat"],
+               "draw_s": draw_s, "first_ms": first_ms, "warm_ms": warm_ms,
+               "edges_per_s": len(src) / warm_ms * 1e3,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **facts}
+        if shape in GNN_CPU_SHAPES:
+            cpu = GAT(cfg, device="cpu", init=False)
+            cpu.load_state_dict({k: v.cpu()
+                                 for k, v in model.state_dict().items()})
+            want = gnn_run(cpu, shape, sh, *[None if a is None else a.cpu()
+                                             for a in dev_args])
+            rec["card_vs_cpu"] = check_close(
+                f"gnn {shape} at full width, card vs CPU", warm.cpu(), want,
+                GNN_TOL, GNN_TOL)
+        out["shapes"][shape] = rec
+        print(f"gnn [{card}] {shape}: {n_nodes} nodes, {len(src)} edges, "
+              f"d_feat {sh['d_feat']}: graph drawn in {draw_s:.2f} s, "
+              f"forward {first_ms:.2f} ms first, {warm_ms:.2f} ms warm, "
+              f"{rec['edges_per_s']:.4g} edges/s, repeat bit-equal, peak "
+              f"{rec['peak_gb']:.2f} GB")
+        del model, feats_d, dev_args, first, warm, feats, src, dst, graph_of
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = end_path("gnn", ())
+    if any(out["launches"].values()):
+        fail("gnn: the GAT forward launched a kernel of the port")
+    out["path_s"] = time.perf_counter() - t_path
     return out
 
 

@@ -68,7 +68,7 @@ def qwen3_moe_smoke() -> TransformerConfig:
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
         d_ff=0, vocab_size=512,
         compute_dtype=torch.float32,
-        moe=MoEConfig(n_experts=8, top_k=2, d_ff=32))
+        moe=MoEConfig(n_experts=8, top_k=2, d_ff=32, group_size=64))
 
 
 # -- llama4-scout-17b-16e [hf:meta-llama/Llama-4-Scout-17B-16E] -------------
@@ -86,4 +86,5 @@ def llama4_scout_smoke() -> TransformerConfig:
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
         d_ff=0, vocab_size=512,
         compute_dtype=torch.float32,
-        moe=MoEConfig(n_experts=4, top_k=1, d_ff=64, n_shared=1))
+        moe=MoEConfig(n_experts=4, top_k=1, d_ff=64, n_shared=1,
+                      group_size=64))

@@ -1,5 +1,6 @@
-"""Synthetic datasets (numpy, made from a seed) and the recsys batch
-pipeline."""
-from .pipelines import RecsysPipeline
+"""Synthetic datasets (numpy, made from a seed), the graph generators and
+neighbour sampler (``graphs``), and the recsys and graph minibatch
+pipelines."""
+from .pipelines import GraphMinibatchPipeline, RecsysPipeline
 
-__all__ = ["RecsysPipeline"]
+__all__ = ["GraphMinibatchPipeline", "RecsysPipeline"]

@@ -1,12 +1,11 @@
 """Deterministic batch pipelines, the JAX package's ``data/pipelines.py``:
 every batch is a pure function of (seed, step), drawn in host numpy, so
 both packages give the same bytes for the same (seed, step).
-``TokenPipeline`` comes with training and ``GraphMinibatchPipeline``
-with the GNN."""
+``TokenPipeline`` comes with training."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -49,3 +48,26 @@ class RecsysPipeline:
                 "history_mask": hist_mask.astype(np.bool_),
                 "target_item": target,
                 "label": label.astype(np.float32)}
+
+
+@dataclass(frozen=True)
+class GraphMinibatchPipeline:
+    """Seeded neighbor-sampled minibatches over a fixed CSR graph."""
+    graph: object               # CSRGraph
+    feats: np.ndarray
+    labels: np.ndarray
+    batch_nodes: int
+    fanouts: Tuple[int, ...] = (15, 10)
+    seed: int = 0
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        from .graphs import sampled_subgraph
+        rng = _rng(self.seed, step)
+        seeds = rng.choice(self.graph.n_nodes, size=self.batch_nodes,
+                           replace=False)
+        src, dst, nodes = sampled_subgraph(self.graph, seeds, self.fanouts,
+                                           seed=self.seed + step)
+        return {"src": src, "dst": dst,
+                "feats": self.feats[nodes],
+                "labels": self.labels[nodes],
+                "n_nodes": np.int32(len(nodes))}

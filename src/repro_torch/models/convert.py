@@ -1,5 +1,5 @@
-"""Carry the JAX package's LM and recsys weights and configs into the
-port.
+"""Carry the JAX package's LM, recsys and GNN weights and configs into
+the port.
 
 ``params_from_jax`` takes the reference's layer-stacked parameter tree
 (``init_params``'s dict, leaves as numpy arrays or anything
@@ -7,7 +7,8 @@ port.
 a ``Transformer`` holding the same weights; ``config_from_jax`` builds
 the port's config from a dict of the reference config's fields
 (``dataclasses.asdict`` of it).  ``recsys_params_from_jax`` and
-``recsys_config_from_jax`` do the same for the four recsys models, whose
+``recsys_config_from_jax`` do the same for the four recsys models, and
+``gnn_params_from_jax`` and ``gnn_config_from_jax`` for the GAT, whose
 trees the port keeps name for name.  This is how a JAX checkpoint's
 weights reach the port, and how the parity tests give both packages one
 model.
@@ -20,14 +21,16 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .gnn import GAT, GATConfig
 from .recsys import MODELS
 from .transformer import MoEConfig, Transformer, TransformerConfig
 
 # the reference's mesh fields, attention switches and training's remat,
 # which the port drops, and the MoE fields that the port's MoEConfig keeps
+# (all but the reference's ``impl``)
 DROPPED_FIELDS = ("dp_axes", "tp_axis", "seq_shard_activations",
                   "attn_impl", "attn_grouped", "remat")
-MOE_FIELDS = ("n_experts", "top_k", "d_ff", "n_shared")
+MOE_FIELDS = tuple(f.name for f in dataclasses.fields(MoEConfig))
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 _BLOCK_LEAVES = {"ln1": ("ln1",), "ln2": ("ln2",),
@@ -50,7 +53,7 @@ def _torch_dtype(x) -> torch.dtype:
 
 def config_from_jax(fields: Dict[str, Any]) -> TransformerConfig:
     """The port's config from the reference config's fields (its mesh
-    fields, attention switches, ``remat`` and MoE routing fields dropped,
+    fields, attention switches, ``remat`` and the MoE's ``impl`` dropped,
     dtypes made torch dtypes)."""
     f = {k: v for k, v in fields.items() if k not in DROPPED_FIELDS}
     moe = f.get("moe")
@@ -67,7 +70,9 @@ def params_from_jax(params: Dict[str, Any], cfg: TransformerConfig,
                     device="cuda", dtype: Optional[torch.dtype] = None
                     ) -> Transformer:
     """A ``Transformer`` on ``device`` holding ``params``' weights, stored
-    in ``dtype`` (``cfg.param_dtype`` by default)."""
+    in ``dtype`` (``cfg.param_dtype`` by default).  An MoE block's
+    ``moe.*`` and ``shared_mlp.*`` weights come from the trees of those
+    names."""
     if dtype is not None:
         cfg = dataclasses.replace(cfg, param_dtype=dtype)
     model = Transformer(cfg, device=device, init=False)
@@ -82,7 +87,7 @@ def params_from_jax(params: Dict[str, Any], cfg: TransformerConfig,
     layer0 = model.blocks[0].named_parameters() if len(model.blocks) else ()
     for name, _ in layer0:
         leaf = params
-        for key in _BLOCK_LEAVES[name]:
+        for key in _BLOCK_LEAVES.get(name, name.split(".")):
             leaf = leaf[key]
         stacked = tensor(leaf)
         for i in range(cfg.n_layers):
@@ -125,4 +130,22 @@ def recsys_params_from_jax(model_name: str, params: Dict[str, Any], cfg,
     state = {name: torch.from_numpy(np.array(leaf, dtype=np.float32))
              for name, leaf in _flatten(params)}
     model.load_state_dict(state)
+    return model
+
+
+def gnn_config_from_jax(fields: Dict[str, Any]) -> GATConfig:
+    """The port's GAT config from the reference config's fields
+    (``dp_axes`` dropped)."""
+    return GATConfig(**{k: v for k, v in fields.items() if k != "dp_axes"})
+
+
+def gnn_params_from_jax(params: Dict[str, Any], cfg: GATConfig,
+                        device="cuda") -> GAT:
+    """A ``GAT`` on ``device`` holding ``params`` (the reference's
+    ``init_params`` tree, ``{"layers": [{"w", "a_src", "a_dst", "b"},
+    ...]}``) in f32."""
+    model = GAT(cfg, device=device, init=False)
+    model.load_state_dict({
+        name: torch.from_numpy(np.array(leaf, dtype=np.float32))
+        for name, leaf in _flatten(params)})
     return model

@@ -7,13 +7,19 @@ Conventions kept from the reference: weights are used as ``x @ W`` with
 ``W`` of shape ``(d_in, d_out)``; the parameter dtype and the compute
 dtype are separate, and every use casts a weight to the compute dtype
 first; reductions that the reference asks in f32 are taken in f32.
-``segment_softmax`` waits for the GNN and ``spec_mlp`` for the sharding
-specs.
+``spec_mlp`` waits for the sharding specs.
+
+The GNN's segment reductions (``segment_sum``, ``segment_max``,
+``segment_softmax``) take their rows grouped by segment, each segment
+reduced in row order by one thread per (segment, column), with no
+atomics: the same inputs give the same bits on every run, on the card
+as on the CPU.  ``index_add_`` and ``scatter_add_`` would sum with
+atomics on the card, in no fixed order.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -179,3 +185,58 @@ def embedding_bag(table: Tensor, ids: Tensor, *, mode: str = "sum",
         out = out / torch.clamp(torch.sum(valid, dim=-1, keepdim=True),
                                 min=1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Segment reductions (the GNN's message passing)
+# ---------------------------------------------------------------------------
+
+def sort_segments(segment_ids: Tensor, num_segments: int
+                  ) -> Tuple[Tensor, Tensor]:
+    """(the stable order that sorts ``segment_ids``, each segment's
+    length as int64): rows taken in that order are grouped by segment and
+    keep their order inside it."""
+    order = torch.argsort(segment_ids, stable=True)
+    lengths = torch.bincount(segment_ids, minlength=num_segments)
+    return order, lengths
+
+
+def reduce_sorted(data: Tensor, lengths: Tensor, reduce: str) -> Tensor:
+    """``reduce`` ("sum" or "max") over each segment of ``data``'s rows,
+    which lie grouped by segment, ``lengths[i]`` rows of segment i after
+    those of segment i - 1.  An empty segment sums to 0 and maxes to
+    -inf.  Rows are made at least 2-D so every segment is reduced in row
+    order (one-dimensional data would take a tree reduction)."""
+    flat = data.reshape(data.shape[0], -1)
+    initial = 0.0 if reduce == "sum" else float("-inf")
+    out = torch.segment_reduce(flat, reduce, lengths=lengths, axis=0,
+                               unsafe=True, initial=initial)
+    return out.reshape(lengths.shape[0], *data.shape[1:])
+
+
+def segment_sum(data: Tensor, segment_ids: Tensor,
+                num_segments: int) -> Tensor:
+    """``jax.ops.segment_sum`` in a fixed order: each segment's rows
+    summed in the order they come in ``data``."""
+    order, lengths = sort_segments(segment_ids, num_segments)
+    return reduce_sorted(data[order], lengths, "sum")
+
+
+def segment_max(data: Tensor, segment_ids: Tensor,
+                num_segments: int) -> Tensor:
+    """``jax.ops.segment_max``: -inf for an empty segment."""
+    order, lengths = sort_segments(segment_ids, num_segments)
+    return reduce_sorted(data[order], lengths, "max")
+
+
+def segment_softmax(scores: Tensor, segment_ids: Tensor,
+                    num_segments: int) -> Tensor:
+    """Softmax over variable-size groups (the GNN edge softmax): the
+    segment max (0 for an empty segment) subtracted, and the sum floored
+    at 1e-20, as the reference's."""
+    order, lengths = sort_segments(segment_ids, num_segments)
+    smax = reduce_sorted(scores[order], lengths, "max")
+    smax = torch.nan_to_num(smax, neginf=0.0)
+    ex = torch.exp(scores - smax[segment_ids])
+    denom = reduce_sorted(ex[order], lengths, "sum")
+    return ex / torch.clamp(denom[segment_ids], min=1e-20)

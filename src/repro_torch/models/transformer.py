@@ -1,20 +1,23 @@
-"""Decoder-only transformer LM (dense), GQA, RoPE, flash attention: the
-serving path of the JAX package's ``models/transformer.py`` in PyTorch.
+"""Decoder-only transformer LM (dense + MoE), GQA, RoPE, flash attention:
+the serving path of the JAX package's ``models/transformer.py`` in
+PyTorch.
 
 Paths:
   * ``Transformer.prefill``     — full-prompt forward; emits the KV cache
                                   (attention through the hand-written
                                   flash kernel on the card)
   * ``Transformer.decode_step`` — one token against the KV cache
+  * ``moe_ffn``                 — the GShard top-k MoE FFN with capacity
+                                  that both run on an MoE config
 
 Weights keep the reference's orientation (``x @ W``, ``W`` as
-``(d_in, d_out)``) and its cache layout ``(L, B, S, KH, dh)``.  Not
-ported yet (ROADMAP Queue 1 item 12): the MoE FFN, training
+``(d_in, d_out)``) and its cache layout ``(L, B, S, KH, dh)``.  Training
 (``forward_train``, the losses, ``hidden_states``) and the sharding
-specs.
+specs are not ported.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
@@ -29,18 +32,18 @@ from .layers import (apply_rope, decode_attention, dense_init, rmsnorm,
 
 Tensor = torch.Tensor
 
-MOE_NOT_PORTED = ("the MoE FFN (moe_ffn) is not ported yet: ROADMAP Queue 1 "
-                  "item 12")
-
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """The reference's expert counts and widths, which ``param_count``
-    reads; its routing fields wait with the MoE FFN."""
+    """The reference's MoE fields; its ``impl`` switch is dropped: the
+    port has one dispatch (``moe_ffn``)."""
     n_experts: int
     top_k: int
     d_ff: int                      # per-expert hidden
     n_shared: int = 0              # shared (always-on) experts
+    capacity_factor: float = 1.25
+    group_size: int = 512
+    router_aux_weight: float = 0.01
 
 
 @dataclass(frozen=True)
@@ -91,6 +94,37 @@ class Block(nn.Module):
             self.bq = _param(make("zeros", (h * dh,)))
             self.bk = _param(make("zeros", (kh * dh,)))
             self.bv = _param(make("zeros", (kh * dh,)))
+        if cfg.moe is None:
+            self.w_gate = _param(make("dense", (d, f)))
+            self.w_up = _param(make("dense", (d, f)))
+            self.w_down = _param(make("dense", (f, d)))
+            return
+        self.moe = MoE(cfg, make)
+        if cfg.moe.n_shared:
+            self.shared_mlp = SharedMLP(d, cfg.moe.d_ff * cfg.moe.n_shared,
+                                        make)
+
+
+class MoE(nn.Module):
+    """One layer's routed experts: ``router (d, E)``, ``w_gate``/``w_up
+    (E, d, fe)`` and ``w_down (E, fe, d)``, each expert's std from its
+    own fan-in, as the reference draws them."""
+
+    def __init__(self, cfg: TransformerConfig, make):
+        super().__init__()
+        d, e, fe = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff
+        self.router = _param(make("dense", (d, e)))
+        self.w_gate = _param(make("dense", (e, d, fe), 1))
+        self.w_up = _param(make("dense", (e, d, fe), 1))
+        self.w_down = _param(make("dense", (e, fe, d), 1))
+
+
+class SharedMLP(nn.Module):
+    """The always-on experts of one layer, as one SwiGLU of width
+    ``d_ff * n_shared``."""
+
+    def __init__(self, d: int, f: int, make):
+        super().__init__()
         self.w_gate = _param(make("dense", (d, f)))
         self.w_up = _param(make("dense", (d, f)))
         self.w_down = _param(make("dense", (f, d)))
@@ -111,10 +145,108 @@ def _qkv(lp: Block, x: Tensor, cfg: TransformerConfig):
             v.reshape(b, s, cfg.n_kv_heads, dh))
 
 
-def _ffn(lp: Block, x: Tensor) -> Tensor:
-    """The dense SwiGLU FFN (the MoE branch is not ported)."""
-    h = F.silu(x @ lp.w_gate.to(x.dtype)) * (x @ lp.w_up.to(x.dtype))
-    return h @ lp.w_down.to(x.dtype)
+def _swiglu(p, x: Tensor) -> Tensor:
+    """SwiGLU through ``p.w_gate``, ``p.w_up`` and ``p.w_down``."""
+    h = F.silu(x @ p.w_gate.to(x.dtype)) * (x @ p.w_up.to(x.dtype))
+    return h @ p.w_down.to(x.dtype)
+
+
+@dataclass
+class Routing:
+    """Where ``route`` sends each (token, choice) pair of one MoE layer."""
+    xg: Tensor      # (ng, g, d) the tokens in groups, the last zero-padded
+    top_w: Tensor   # (ng, g, k) f32 gate weights, renormalised
+    top_e: Tensor   # (ng, g, k) int64 experts, most probable first
+    slot: Tensor    # (ng, g, k) int64 place in the expert's queue
+    cap: int        # slots an expert has per group; slot >= cap: dropped
+    aux: Tensor     # f32 scalar, the Switch load-balancing term
+
+
+def route(moe: MoE, x: Tensor, mcfg: MoEConfig) -> Routing:
+    """The reference's routing of x (B, S, d): the flattened tokens in
+    groups of ``g = min(group_size, B*S)`` (the last zero-padded; the
+    padding routes too, after every real token of its group), f32
+    logits from f32 copies of the x-dtype operands, an f32 softmax, the
+    top k by a stable descending sort (ties to the lower expert, as
+    ``lax.top_k``), weights renormalised by ``max(sum, 1e-9)``, and each
+    pair's slot from a cumsum over the group's pairs in token-major
+    order."""
+    b, s, d = x.shape
+    e, k = mcfg.n_experts, mcfg.top_k
+    t = b * s
+    g = min(mcfg.group_size, t)
+    ng = -(-t // g)
+    xf = x.reshape(t, d)
+    if ng * g != t:
+        xf = F.pad(xf, (0, 0, 0, ng * g - t))
+    xg = xf.reshape(ng, g, d)
+    logits = xg.float() @ moe.router.to(x.dtype).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[..., :k], top_e[..., :k]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(top_e[..., 0], e).float().mean(dim=(0, 1))
+    aux = e * torch.sum(me * ce) * mcfg.router_aux_weight
+    cap = int(math.ceil(g * k * mcfg.capacity_factor / e / 4.0) * 4)
+    pairs = top_e.reshape(ng, g * k, 1)
+    seen = F.one_hot(pairs[..., 0], e).cumsum(1)          # (ng, g*k, E)
+    slot = (torch.gather(seen, 2, pairs) - 1).reshape(ng, g, k)
+    return Routing(xg, top_w, top_e, slot, cap, aux)
+
+
+def moe_ffn(moe: MoE, x: Tensor, cfg: TransformerConfig
+            ) -> Tuple[Tensor, Tensor]:
+    """The reference's GShard top-k MoE with capacity (``moe_ffn``):
+    x (B, S, d) -> (out (B, S, d) in x's dtype, aux f32 scalar).
+
+    The reference dispatches and combines by one-hot einsums over a
+    ``(g, E, C)`` slot tensor; here each kept pair's row is gathered into
+    an ``(E, ng * cap, d)`` buffer (zero where a slot is empty), the
+    experts run as batched products in x's dtype, and each token adds its
+    kept pairs' ``gate.to(x.dtype) * eout`` in f32, choice by choice, then
+    casts to x's dtype.  A pair past its expert's capacity adds nothing:
+    a token that loses every choice gets zeros."""
+    mcfg = cfg.moe
+    b, s, d = x.shape
+    r = route(moe, x, mcfg)
+    ng, g, k = r.top_e.shape
+    e, cap, dev = mcfg.n_experts, r.cap, x.device
+    keep = r.slot < cap
+    grp = torch.arange(ng, device=dev)[:, None, None]
+    row = (r.top_e * ng + grp) * cap + r.slot        # expert-major rows
+    # which token fills each buffer row (ng * g: the zero row past the
+    # tokens); the dropped pairs all write one spare entry, cut off after
+    n_rows = e * ng * cap
+    src = torch.full((n_rows + 1,), ng * g, dtype=torch.long, device=dev)
+    tok = (grp * g + torch.arange(g, device=dev)[None, :, None]).expand(
+        ng, g, k)
+    src.scatter_(0, torch.where(keep, row, n_rows).reshape(-1),
+                 tok.reshape(-1))
+    xz = torch.cat([r.xg.reshape(ng * g, d), x.new_zeros((1, d))])
+    ein = xz[src[:n_rows]].reshape(e, ng * cap, d)
+    hg = torch.bmm(ein, moe.w_gate.to(x.dtype))
+    hu = torch.bmm(ein, moe.w_up.to(x.dtype))
+    eout = torch.bmm(F.silu(hg) * hu, moe.w_down.to(x.dtype))
+    eout = eout.reshape(n_rows, d)
+    gate = torch.where(keep, r.top_w, 0.0).to(x.dtype).reshape(ng * g, k)
+    row = torch.where(keep, row, 0).reshape(ng * g, k)
+    acc = torch.zeros((ng * g, d), dtype=torch.float32, device=dev)
+    for j in range(k):
+        acc += gate[:, j, None].float() * eout[row[:, j]].float()
+    out = acc.to(x.dtype)[:b * s].reshape(b, s, d)
+    return out, r.aux
+
+
+def _ffn(lp: Block, x: Tensor, cfg: TransformerConfig) -> Tensor:
+    """The block's FFN: the dense SwiGLU, or the MoE plus the shared
+    experts.  The MoE's aux term is dropped: serving has no loss."""
+    if cfg.moe is None:
+        return _swiglu(lp, x)
+    out, _ = moe_ffn(lp.moe, x, cfg)
+    if cfg.moe.n_shared:
+        out = out + _swiglu(lp.shared_mlp, x)
+    return out
 
 
 class Transformer(nn.Module):
@@ -122,15 +254,17 @@ class Transformer(nn.Module):
     ``generator`` (on ``device``; a fresh one seeded with 0 by default) with
     the reference's ``1/sqrt(fan_in)`` std, norms at one and biases at
     zero.  ``init=False`` leaves the weights unset, for loading
-    (``convert.params_from_jax``).  A config with ``moe`` raises
-    NotImplementedError."""
+    (``convert.params_from_jax``).  An MoE config whose ``top_k`` is not
+    in ``[1, n_experts]`` raises ValueError."""
 
     def __init__(self, cfg: TransformerConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None,
                  init: bool = True):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(MOE_NOT_PORTED)
+        if cfg.moe is not None and not 0 < cfg.moe.top_k <= \
+                cfg.moe.n_experts:
+            raise ValueError(f"MoE top_k {cfg.moe.top_k} is not in [1, "
+                             f"n_experts = {cfg.moe.n_experts}]")
         dev = resolve_device(device)
         if init and generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -184,7 +318,7 @@ class Transformer(nn.Module):
                             k_block=cfg.k_block)
             att = att.reshape(b, s, cfg.n_heads * cfg.head_dim)
             x = x + att @ lp.wo.to(x.dtype)
-            x = x + _ffn(lp, rmsnorm(x, lp.ln2.to(x.dtype)))
+            x = x + _ffn(lp, rmsnorm(x, lp.ln2.to(x.dtype)), cfg)
             cache_k[i] = k
             cache_v[i] = v
         return self._logits(x[:, -1:])[:, 0], (cache_k, cache_v)
@@ -217,7 +351,7 @@ class Transformer(nn.Module):
             att = decode_attention(q, ck, cv, cache_len + 1)
             att = att.reshape(x.shape[0], 1, cfg.n_heads * cfg.head_dim)
             x = x + att @ lp.wo.to(x.dtype)
-            x = x + _ffn(lp, rmsnorm(x, lp.ln2.to(x.dtype)))
+            x = x + _ffn(lp, rmsnorm(x, lp.ln2.to(x.dtype)), cfg)
         return self._logits(x)[:, 0], (cache_k, cache_v)
 
 

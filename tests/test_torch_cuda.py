@@ -1178,3 +1178,121 @@ def test_two_tower_retrieval_through_quake_on_the_card(dev):
                           storage_dtype="int8")
     assert sti.LAUNCHES_Q8.count > before
     assert r8.ids.shape == (64, k)
+
+
+# ---------------------------------------------------------------------------
+# MoE serving and the GAT forward
+# ---------------------------------------------------------------------------
+
+MOE_TOL = GNN_TOL = 1e-5
+
+
+@pytest.mark.parametrize("zero_router", [False, True],
+                         ids=["random", "zero-router"])
+@pytest.mark.parametrize("name", ["qwen3_moe_smoke", "llama4_scout_smoke"])
+def test_moe_on_the_card_matches_the_cpu(dev, name, zero_router):
+    """``moe_ffn`` (75 tokens: a full group of 64 and a padded one, at a
+    capacity factor that drops), ``prefill`` and ``decode_step`` of the
+    same smoke weights on the card and the CPU, within 1e-5 * |x| +
+    1e-5; a zero router forces ties (uniform probabilities) and drops."""
+    import dataclasses
+    from repro_torch.configs import lm_archs
+    from repro_torch.models import transformer as tr
+    base = getattr(lm_archs, name)()
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, capacity_factor=0.5))
+    cpu = tr.Transformer(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(1))
+    if zero_router:
+        for blk in cpu.blocks:
+            blk.moe.router.data.zero_()
+    card = tr.Transformer(cfg, device=dev, init=False)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((3, 25, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2))
+    for want, got in zip(tr.moe_ffn(cpu.blocks[0].moe, x, cfg),
+                         tr.moe_ffn(card.blocks[0].moe, x.to(dev), cfg)):
+        assert torch.allclose(got.cpu(), want, rtol=MOE_TOL, atol=MOE_TOL)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(3))
+    lg, (ck, cv) = cpu.prefill(toks)
+    lg_d, (ck_d, cv_d) = card.prefill(toks.to(dev))
+    for got, want in ((lg_d, lg), (ck_d, ck), (cv_d, cv)):
+        assert torch.allclose(got.cpu(), want, rtol=MOE_TOL, atol=MOE_TOL)
+    pad = (0, 0, 0, 0, 0, 1)
+    ck, cv = (torch.nn.functional.pad(t, pad) for t in (ck, cv))
+    ck_d, cv_d = ck.to(dev), cv.to(dev)
+    tok, cl = torch.tensor([3, 7]), torch.tensor([40, 37])
+    want, _ = cpu.decode_step(tok, ck, cv, cl)
+    got, _ = card.decode_step(tok.to(dev), ck_d, cv_d, cl.to(dev))
+    assert torch.allclose(got.cpu(), want, rtol=MOE_TOL, atol=MOE_TOL)
+    assert torch.allclose(ck_d.cpu(), ck, rtol=MOE_TOL, atol=MOE_TOL)
+
+
+def test_segment_sums_on_the_card_are_reproducible(dev):
+    """On a power-law graph of about 1M edges, the card's segment sums
+    and maxes (edges sorted by destination once, each segment reduced in
+    edge order, no atomics) give equal bits twice, and the CPU's sums
+    within 1e-5 * |x| + 1e-5."""
+    from repro_torch.data import graphs
+    from repro_torch.models import layers
+    src, dst = graphs.to_edges(graphs.power_law_graph(100_000, 5.0, seed=0))
+    assert len(dst) > 900_000
+    dst = torch.as_tensor(dst, dtype=torch.long)
+    msg = torch.randn((len(dst), 8, 8),
+                      generator=torch.Generator().manual_seed(0))
+    scores = msg[:, :, 0]
+    d_dev, m_dev, s_dev = dst.to(dev), msg.to(dev), scores.to(dev)
+    for fn, data, gpu in ((layers.segment_sum, msg, m_dev),
+                          (layers.segment_max, scores, s_dev),
+                          (layers.segment_softmax, scores, s_dev)):
+        a = fn(gpu, d_dev, 100_000)
+        b = fn(gpu, d_dev, 100_000)
+        assert torch.equal(a, b)
+        want = fn(data, dst, 100_000)
+        fin = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(a.cpu()), fin)
+        assert torch.allclose(a.cpu()[fin], want[fin], rtol=GNN_TOL,
+                              atol=GNN_TOL)
+
+
+@pytest.mark.parametrize("shape", ["full_graph_sm", "minibatch_lg",
+                                   "ogb_products", "molecule"])
+def test_gat_forward_on_the_card_matches_the_cpu(dev, shape):
+    """``gat_cora_smoke`` at each smoke shape's d_feat on a graph of that
+    shape: the card's forward (pooled for ``molecule``) equal to itself
+    twice and to the CPU's within 1e-5 * |x| + 1e-5."""
+    import dataclasses
+    from repro_torch.configs import gnn_archs
+    from repro_torch.data import graphs
+    from repro_torch.models import gnn
+    sh = gnn_archs.GNN_SMOKE_SHAPES[shape]
+    if shape == "molecule":
+        src, dst, feats, graph_of = graphs.molecule_batch(
+            sh["n_graphs"], sh["n_nodes"], sh["n_edges"], sh["d_feat"])
+        n = len(feats)
+    else:
+        n = sh["n_nodes"]
+        g = graphs.power_law_graph(n, sh["n_edges"] / n / 2, seed=1)
+        src, dst = graphs.to_edges(g)
+        feats = np.random.default_rng(2).normal(
+            size=(n, sh["d_feat"])).astype(np.float32)
+    cfg = dataclasses.replace(gnn_archs.gat_cora_smoke(), d_in=sh["d_feat"])
+    cpu = gnn.GAT(cfg, device="cpu",
+                  generator=torch.Generator().manual_seed(0))
+    card = gnn.GAT(cfg, device=dev, init=False)
+    card.load_state_dict(cpu.state_dict())
+    args = [torch.as_tensor(a) for a in (feats, src, dst)]
+    if shape == "molecule":
+        args.append(torch.as_tensor(graph_of))
+
+    def run(model, dev_):
+        a = [t.to(dev_) for t in args]
+        if shape == "molecule":
+            return gnn.graph_pool_logits(model, *a, sh["n_graphs"])
+        return gnn.forward(model, *a)
+
+    want = run(cpu, "cpu")
+    got = run(card, dev)
+    assert torch.equal(got, run(card, dev))
+    assert torch.allclose(got.cpu(), want, rtol=GNN_TOL, atol=GNN_TOL)

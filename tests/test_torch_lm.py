@@ -202,8 +202,14 @@ def test_config_matches_reference(arch, size):
 
 @pytest.mark.parametrize("fn", ["qwen3_moe_smoke", "llama4_scout_smoke"])
 def test_moe_config_raises(fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.Transformer(getattr(lm_archs, fn)(), device="cpu")
+    """An MoE config builds (tests/test_torch_moe.py holds it against the
+    reference); one that routes to more experts than it has raises."""
+    cfg = getattr(lm_archs, fn)()
+    assert len(tr.Transformer(cfg, device="cpu").blocks) == cfg.n_layers
+    bad = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, top_k=cfg.moe.n_experts + 1))
+    with pytest.raises(ValueError, match="top_k"):
+        tr.Transformer(bad, device="cpu")
 
 
 # ---------------------------------------------------------------------------
