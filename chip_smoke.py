@@ -5,9 +5,9 @@
                           [--wiki-n 1000000] [--months 12]
                           [--serve-months 12]
 
-With no arguments it runs nine paths, each with the kernels' launch
+With no arguments it runs ten paths, each with the kernels' launch
 counts set to 0 just before it and read just after (path 6 runs after
-the kernel checks and before path 3, paths 7-9 last, in that order):
+the kernel checks and before path 3, paths 7-10 last, in that order):
 
 1. The main path, the SIFT1M-shaped cell: 1,000,000 clustered synthetic
    vectors of d=128 (L2; a mixture of 8192 Gaussian clusters with sizes
@@ -145,6 +145,28 @@ the kernel checks and before path 3, paths 7-9 last, in that order):
    and ``molecule`` and at every smoke shape (1e-5 * |x| + 1e-5), and no
    kernel of the port launched.  It prints the warm forward's ms and
    edges/s, the host's drawing seconds and peak device memory.
+10. Training (``train/``, ``launch/train.py``, the models' losses), with
+   no kernel of the port launched: (a) one ``make_train_step`` step of
+   qwen25, granite and qwen3-moe smoke, the four recsys smoke configs
+   and the GAT (full and pooled) on the card and on the CPU from the
+   same weights, f32 with TF32 off: loss, grad norm and every parameter
+   within 1e-5 * |x| + 1e-5 (entries of a rounding-level gradient, which
+   Adam's first update moves by lr * sign(g), within 2 * lr); (b)
+   qwen2.5-14b at full width and 4 layers, the reference's ``train_4k``
+   step (S 4,096, B 4, 2 microbatches, ``lm_loss_chunked`` over 512,
+   remat, bf16 cast, OPT_CFG): one warm and 3 timed steps, finite losses
+   and grad norms, every parameter changed, then one step under
+   torch.profiler; it prints step seconds, tokens/s, peak memory,
+   TFLOP/s by ``train_flops``, the idle share and the optimizer's share;
+   (c) ``launch.train.main`` on lm-20m for 100 steps (the loss falls),
+   then ``train_loop`` with a failure one step after a checkpoint (one
+   restart, a replay from it) and without, their losses within 1e-4;
+   (d) DIN and DLRM RM-2 at ``train_batch`` (B 65,536), SASRec and
+   two-tower at B 16,384, DLRM's and the two-tower's tables cut to 1.25
+   M and 2.5 M rows, and the GAT at ``full_graph_sm``, ``minibatch_lg``
+   and ``molecule``: finite losses, every parameter changed, step ms and
+   peak memory; (e) ``make_compressed_dp_step`` on a one-rank NCCL group
+   against the same step in a one-rank gloo group on the CPU.
 
 It then holds each CUDA kernel against its plain PyTorch version at the
 shapes the paths gave it, times both and a one-library-call yardstick,
@@ -270,6 +292,38 @@ GNN_REDDIT_NODES, GNN_REDDIT_DEGREE = 232_965, 25
 GNN_BATCH_NODES, GNN_FANOUTS = 1024, (15, 10)
 GNN_CPU_SHAPES = ("full_graph_sm", "molecule")
 GNN_TOL = 1e-5
+# the training path (path 10).  (a) card against CPU: one step of each smoke
+# config (TRAIN_SMOKE_LMS, the recsys smoke configs, the GAT's full_graph_sm
+# and molecule) under TRAIN_SMOKE_OPT, a step that moves every parameter by
+# about its lr; loss, grad norm and parameters within TRAIN_TOL * |x| +
+# TRAIN_TOL, but entries whose gradient is under TRAIN_SMALL of its leaf's
+# largest (Adam's first update is lr * sign(g) there), held to 2 * lr; so are
+# entries under TRAIN_NOISE of the largest gradient of all, at its f32 rounding
+# level.  (b) qwen2.5-14b at full width and TRAIN_LAYERS layers, B TRAIN_B, one
+# warm and TRAIN_TIMED timed steps.  (c) the entry point on TRAIN_PRESET for
+# TRAIN_STEPS steps, then two loops of TRAIN_LOOP_STEPS with a checkpoint every
+# TRAIN_CKPT steps, their losses within TRAIN_LOOP_REL (the card's embedding
+# backward adds with atomics).  (d) the recsys models at train_batch, the
+# in-batch models at TRAIN_INBATCH_B, two tables cut to TRAIN_RECSYS_ROWS, and
+# the GAT at TRAIN_GNN_SHAPES.  (e) the compressed step's code ties: (g + r) /
+# scale within TRAIN_CODE_TIE of a half
+TRAIN_SMOKE_LMS = ("qwen25_smoke", "granite_smoke", "qwen3_moe_smoke")
+TRAIN_SMOKE_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10)
+TRAIN_TOL, TRAIN_SMALL, TRAIN_NOISE = 1e-5, 1e-3, 1e-6
+TRAIN_LM, TRAIN_LAYERS, TRAIN_B, TRAIN_TIMED = "qwen25_14b", 4, 4, 3
+TRAIN_PRESET, TRAIN_STEPS = "lm-20m", 100
+TRAIN_LOOP_STEPS, TRAIN_CKPT, TRAIN_LOOP_REL = 30, 10, 1e-4
+TRAIN_INBATCH_B = 16_384
+TRAIN_RECSYS_ROWS = {"two-tower-retrieval": 2_500_000, "dlrm-rm2": 1_250_000}
+TRAIN_GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "molecule")
+TRAIN_CODE_TIE = 1e-3
+# kernel groups of the (b) step's profile: f32 GEMMs (the attention's
+# scores and PV products of f32 copies: CUDA-core sgemm), the other GEMMs
+# (bf16 on the tensor cores), elementwise and copy kernels, reductions
+TRAIN_GROUPS = {"gemm_f32": ("sgemm", "f32f32_f32f32", "ffma"),
+                "gemm_other": ("gemm", "nvjet", "cutlass"),
+                "elementwise": ("elementwise", "copy"),
+                "reduce": ("reduce",)}
 
 
 def fail(msg: str) -> None:
@@ -432,13 +486,16 @@ def warm_then_time(fn, counters=None, during=contextlib.nullcontext):
 
 
 def profile_call(fn, what: str = "search_batch", match: str = "",
-                 out_dir=OUT_DIR, ranges=()) -> dict:
+                 out_dir=OUT_DIR, ranges=(), groups=None) -> dict:
     """Device busy time of one warm call of ``fn`` under torch.profiler,
     beside its wall time, the kernels that took the most device time, the
-    device time of the kernels whose name holds ``match``, and the device
+    device time of the kernels whose name holds ``match``, the device
     span of each ``record_function`` range named in ``ranges`` (summed
-    over its calls; the kernels inside take all but the launch gaps).
-    The trace goes to ``out_dir`` (none when it is None)."""
+    over its calls; the kernels inside take all but the launch gaps),
+    and with ``groups`` (name -> substrings) the device time of the
+    kernels of each group, a kernel in the first group one of whose
+    substrings its name holds ("other": none).  The trace goes to
+    ``out_dir`` (none when it is None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -476,6 +533,12 @@ def profile_call(fn, what: str = "search_batch", match: str = "",
             if rows else None
     if ranges:
         out["range_ms"] = spans
+    if groups:
+        out["group_ms"] = {g: 0.0 for g in list(groups) + ["other"]}
+        for ms, _, k in rows:
+            g = next((g for g, subs in groups.items()
+                      if any(x in k for x in subs)), "other")
+            out["group_ms"][g] += ms
     print(f"profile of one warm {what}: wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms" if rows else
           "profile: the profiler saw no device time (not measured)")
@@ -1292,6 +1355,15 @@ def main() -> int:
     # ---- path 9: the GAT forward at its four graph shapes -----------------
     record["gnn"] = run_gnn(args, dev, start_path, end_path)
     print(f"gnn path took {record['gnn']['path_s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- path 10: training (the LM at full width, recsys, GAT) ------------
+    record["train"] = run_train(args, dev, start_path, end_path, counters)
+    print(f"train path took {record['train']['path_s']:.1f} s")
+    for row in kernels:      # each kernel's launches on the training path
+        row["train_launches"] = record["train"]["launches"][
+            row["name"].split("[")[0]]
     checks = record["engine"]["engine_check"]
     for row in kernels:      # each kernel's launches on the engine path
         row["engine_launches"] = path_launches["engine"][
@@ -3957,6 +4029,635 @@ def run_gnn(args, dev, start_path, end_path) -> dict:
     if any(out["launches"].values()):
         fail("gnn: the GAT forward launched a kernel of the port")
     out["path_s"] = time.perf_counter() - t_path
+    return out
+
+
+# ---------------------------------------------------------------------------
+# path 10: training on the card
+# ---------------------------------------------------------------------------
+
+def sample_entries(model, n: int, seed: int) -> dict:
+    """(indices, values) of ``n`` fixed entries of each parameter (all of
+    a smaller one), to see which a step changed without a copy of the
+    model."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, p in model.named_parameters():
+        flat = p.detach().reshape(-1)
+        idx = (torch.arange(flat.numel()) if flat.numel() <= n else
+               torch.randint(0, flat.numel(), (n,), generator=g))
+        idx = idx.to(p.device)
+        out[name] = (idx, flat[idx].clone())
+    return out
+
+
+def check_changed(name, model, before: dict) -> float:
+    """Fail unless a step changed every parameter (at least half of each
+    one's sampled entries); returns the smallest changed share."""
+    shares = {}
+    for pname, p in model.named_parameters():
+        idx, old = before[pname]
+        now = p.detach().reshape(-1)[idx]
+        shares[pname] = float((now != old).float().mean())
+    worst = min(shares, key=shares.get)
+    if shares[worst] < 0.5:
+        fail(f"{name}: the step left {1 - shares[worst]:.3f} of {worst}'s "
+             f"sampled entries unchanged")
+    return shares[worst]
+
+
+def hold_params(name, got_model, want_model, small: dict,
+                lr: float) -> float:
+    """Every parameter of ``got_model`` within TRAIN_TOL * |x| + TRAIN_TOL
+    of ``want_model``'s, except where ``small`` marks an entry (a
+    near-zero gradient, or a code tie of the compressed step): Adam's
+    first update there is lr * sign(g) of a rounding-level g, held to
+    2 * lr.  Returns the largest |diff| outside the marked entries."""
+    import torch
+    worst = 0.0
+    want = dict(want_model.named_parameters())
+    for pname, p in got_model.named_parameters():
+        w = want[pname].detach().double().cpu()
+        x = p.detach().double().cpu()
+        diff = (x - w).abs()
+        mark = small[pname].cpu()
+        over = diff > torch.where(mark, 2.0 * lr,
+                                  TRAIN_TOL * w.abs() + TRAIN_TOL)
+        if bool(over.any()):
+            fail(f"{name}: {int(over.sum())} entries of {pname} beyond "
+                 f"their bound, max |diff| {float(diff.max()):.3g}")
+        if bool((~mark).any()):
+            worst = max(worst, float(diff[~mark].max()))
+    return worst
+
+
+def near_zero(grads: dict) -> dict:
+    """Entries whose gradient is under TRAIN_SMALL of its leaf's largest,
+    or at the f32 rounding level of the largest of all (under TRAIN_NOISE
+    of it: a leaf whose gradient cancels to zero, such as the bias before
+    a softmax, holds rounding noise alone)."""
+    top = max(float(g.abs().max()) for g in grads.values())
+    return {n: (g.abs() < TRAIN_SMALL * g.abs().max())
+            | (g.abs() < TRAIN_NOISE * top) for n, g in grads.items()}
+
+
+def train_smoke_cases(dev, seed):
+    """(name, the CPU model, the card model with the same weights, loss,
+    batch) of each smoke config that path 10 (a) steps on both."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import gnn_archs, lm_archs, recsys_archs
+    from repro_torch.configs import training
+    from repro_torch.data import TokenPipeline, graphs
+    from repro_torch.models import GAT, Transformer, gnn
+    from repro_torch.models import recsys as rs
+    from repro_torch.models import transformer as tr
+
+    def pair(make):
+        cpu = make("cpu", torch.Generator().manual_seed(seed))
+        card = make(dev, None)
+        card.load_state_dict(cpu.state_dict())
+        return cpu, card
+
+    sh = training.LM_TRAIN_SMOKE_SHAPES["train_4k"]
+    for name in TRAIN_SMOKE_LMS:
+        cfg = dataclasses.replace(
+            training.adapt_lm_cfg(getattr(lm_archs, name)()), q_block=16,
+            k_block=32)
+        cpu, card = pair(lambda d, g: Transformer(
+            cfg, device=d, generator=g, init=g is not None))
+        batch = TokenPipeline(cfg.vocab_size, sh["batch"], sh["seq"],
+                              seed).batch_at(0)
+        yield (name, cpu, card, lambda m, b: tr.lm_loss(m, b["tokens"]),
+               batch)
+    b = recsys_archs.RECSYS_SMOKE_SHAPES["train_batch"]["batch"]
+    for name in RECSYS_ARCHS:
+        cfg = recsys_archs.ARCHS[name][1]()
+        cpu, card = pair(lambda d, g: rs.MODELS[name][1](
+            cfg, device=d, generator=g, init=g is not None))
+        yield (f"{name}_smoke", cpu, card, rs.recsys_loss,
+               recsys_pipeline(cfg, b, 0, seed))
+    rng = np.random.default_rng(seed)
+    for shape in ("full_graph_sm", "molecule"):
+        sh = gnn_archs.GNN_SMOKE_SHAPES[shape]
+        cfg = dataclasses.replace(gnn_archs.gat_cora_smoke(),
+                                  d_in=sh["d_feat"])
+        cpu, card = pair(lambda d, g: GAT(cfg, device=d, generator=g,
+                                          init=g is not None))
+        if sh["kind"] == "pooled":
+            src, dst, feats, graph_of = graphs.molecule_batch(
+                sh["n_graphs"], sh["n_nodes"], sh["n_edges"], sh["d_feat"],
+                seed=seed)
+            n = sh["n_graphs"]
+            batch = {"feats": feats, "src": src, "dst": dst,
+                     "graph_of": graph_of,
+                     "labels": rng.integers(0, 7, n).astype(np.int32)}
+            yield (f"gat_{shape}_smoke", cpu, card,
+                   lambda m, b, n=n: gnn.pooled_loss(
+                       m, b["feats"], b["src"], b["dst"], b["graph_of"],
+                       b["labels"], n), batch)
+        else:
+            n = sh["n_nodes"]
+            src, dst = graphs.to_edges(graphs.power_law_graph(
+                n, sh["n_edges"] / n / 2, seed=seed))
+            batch = {"feats": rng.normal(size=(n, sh["d_feat"])).astype(
+                         np.float32), "src": src, "dst": dst,
+                     "labels": rng.integers(0, 7, n).astype(np.int32)}
+            yield (f"gat_{shape}_smoke", cpu, card,
+                   lambda m, b: gnn.loss_fn(m, b["feats"], b["src"],
+                                            b["dst"], b["labels"]), batch)
+
+
+def train_card_vs_cpu(dev, seed) -> dict:
+    """Path 10 (a): one ``make_train_step`` step of each smoke config, f32
+    with TF32 off, on the card and on the CPU from the same weights: loss
+    and grad norm within TRAIN_TOL * |x| + TRAIN_TOL, and every parameter
+    after the step (``hold_params``; the near-zero entries from the CPU's
+    gradient)."""
+    import torch
+    from repro_torch.train import optimizer as opt, steps
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("train: TF32 is on for the f32 card-vs-CPU steps")
+    cfg = opt.AdamWConfig(**TRAIN_SMOKE_OPT)
+    out = {}
+    for name, cpu, card, loss_fn, batch in train_smoke_cases(dev, seed):
+        _, g = steps.value_and_grad(loss_fn, cpu,
+                                    steps.to_device(batch, "cpu"))
+        step = steps.make_train_step(loss_fn, cfg)
+        _, _, mc = step(cpu, opt.init_state(cpu), batch)
+        _, _, mg = step(card, opt.init_state(card), batch)
+        rec = {k: check_close(f"train (a) {name} {k}, card vs CPU",
+                              mg[k].reshape(1).cpu(), mc[k].reshape(1),
+                              TRAIN_TOL, TRAIN_TOL)
+               for k in ("loss", "grad_norm")}
+        rec["params"] = hold_params(f"train (a) {name} params", card, cpu,
+                                    near_zero(g), float(mc["lr"]))
+        rec["near_zero_share"] = float(
+            sum(int(s.sum()) for s in near_zero(g).values())
+            / sum(t.numel() for t in g.values()))
+        print(f"train (a) {name}: loss {float(mc['loss']):.6f}, card = CPU "
+              f"(params max |diff| {rec['params']:.3g} away from "
+              f"{rec['near_zero_share']:.4f} near-zero gradient entries)")
+        out[name] = rec
+    return out
+
+
+def train_flops(cfg, b, s) -> dict:
+    """The FLOP count of one qwen2.5 ``train_4k`` step as the port runs
+    it: 6·N·T for the matmuls (N: the layers' projections and the
+    unembedding; T = B·S tokens), 2·N_layers·T for the per-layer remat
+    forward, 2·d·V·T for the chunked loss's recomputed unembedding, and
+    attention over every (q, k) tile, the fully masked ones too: 4·B·S²·
+    H·dh a layer forward, five times (forward, remat forward, the tiles'
+    recompute, a backward of two)."""
+    d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    layer = d * dh * (h + 2 * kh) + h * dh * d + 3 * d * cfg.d_ff
+    t = b * s
+    parts = {"matmuls": 6.0 * (cfg.n_layers * layer + d * cfg.vocab_size) * t,
+             "remat_forward": 2.0 * cfg.n_layers * layer * t,
+             "loss_recompute": 2.0 * d * cfg.vocab_size * t,
+             "attention": 5 * 4.0 * b * s * s * h * dh * cfg.n_layers}
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def train_lm_full(dev, seed, counters) -> dict:
+    """Path 10 (b): qwen2.5-14b at full width and TRAIN_LAYERS layers, the
+    reference's ``train_4k`` step on one card (``lm_loss_chunked``,
+    TRAIN_MB microbatches, remat, bf16 cast, OPT_CFG): one warm step and
+    TRAIN_TIMED timed ones, each with a finite loss and grad norm; every
+    parameter changed; none of the port's kernels launched; then one
+    step under torch.profiler (idle share, the optimizer's range)."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import lm_archs, training
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import optimizer as opt, steps
+    cfg = training.adapt_lm_cfg(dataclasses.replace(
+        getattr(lm_archs, TRAIN_LM)(), n_layers=TRAIN_LAYERS))
+    sh = training.LM_TRAIN_SHAPES["train_4k"]
+    reduced = [f"{TRAIN_LAYERS} of 48 layers (f32 masters, gradients and "
+               f"AdamW moments of 48 layers need 236 GB)",
+               f"B {TRAIN_B} in place of {sh['batch']}",
+               f"random weights from seed {seed}; tokens from TokenPipeline"]
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = tr.Transformer(cfg, device=dev, generator=g)
+    n_params = sum(p.numel() for p in model.parameters())
+    st = opt.init_state(model)
+    step = steps.make_train_step(
+        lambda m, b: tr.lm_loss_chunked(m, b["tokens"],
+                                        chunk=training.LM_LOSS_CHUNK),
+        training.OPT_CFG, training.LM_MICROBATCHES,
+        training.lm_cast_dtype(cfg))
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_B, sh["seq"], seed)
+    before = sample_entries(model, 65536, seed)
+    launched = {n: c.count for n, c in counters.items()}
+    times, losses, norms = [], [], []
+    for i in range(1 + TRAIN_TIMED):
+        batch = pipe.batch_at(i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, m = step(model, st, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if not (math.isfinite(losses[-1]) and math.isfinite(norms[-1])):
+            fail(f"train (b) step {i}: loss {losses[-1]}, grad norm "
+                 f"{norms[-1]}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {n: c.count - launched[n] for n, c in counters.items()}
+    if any(launches.values()):
+        fail(f"train (b): a step launched the port's kernels {launches}")
+    changed = check_changed("train (b)", model, before)
+    step_s = sum(times[1:]) / TRAIN_TIMED
+    tokens = TRAIN_B * sh["seq"]
+    flops = train_flops(cfg, TRAIN_B, sh["seq"])
+    prof = profile_call(lambda: step(model, st, pipe.batch_at(9)),
+                        "train_step", out_dir=None,
+                        ranges=(steps.UPDATE_RANGE,), groups=TRAIN_GROUPS)
+    upd = (prof.get("range_ms") or {}).get(steps.UPDATE_RANGE)
+    att = train_attention_ms(cfg, dev, seed)
+    # a layer's attention runs forward twice (the step's and the layer's
+    # remat) and backward once (which recomputes its tiles) a microbatch
+    att["step_share"] = (cfg.n_layers * training.LM_MICROBATCHES
+                         * (att["forward_ms"] + att["forward_backward_ms"])
+                         / 1e3 / step_s)
+    rec = {"config": f"{TRAIN_LM} (hf:Qwen/Qwen2.5-14B) d {cfg.d_model}, "
+                     f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+                     f"{cfg.d_ff}, vocab {cfg.vocab_size}, QKV bias",
+           "reduced": reduced, "params": n_params, "B": TRAIN_B,
+           "S": sh["seq"], "microbatches": training.LM_MICROBATCHES,
+           "loss_chunk": training.LM_LOSS_CHUNK,
+           "grouped_attention": cfg.attn_grouped,
+           "first_step_s": times[0], "step_s": times[1:],
+           "mean_step_s": step_s, "tokens_per_s": tokens / step_s,
+           "peak_gb": peak, "losses": losses, "grad_norms": norms,
+           "min_changed_share": changed, "kernel_launches": launches,
+           "flops": flops, "tflops_per_s": flops["total"] / step_s / 1e12,
+           "profile": prof, "attention": att,
+           "optimizer_share": (upd / prof["device_busy_ms"]
+                               if upd and prof.get("device_busy_ms")
+                               else None)}
+    if prof.get("group_ms") and prof.get("device_busy_ms"):
+        rec["group_shares"] = {k: v / prof["device_busy_ms"]
+                               for k, v in prof["group_ms"].items()}
+    print(f"train (b) [{card_line()}] {rec['config']}; {n_params / 1e9:.3f}"
+          f" B parameters; reduced: {'; '.join(reduced)}")
+    print(f"train (b): step {step_s:.3f} s (first {times[0]:.3f} s), "
+          f"{rec['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GB, "
+          f"{rec['tflops_per_s']:.1f} TFLOP/s by the count "
+          f"{flops['total']:.4g} FLOP a step (matmuls "
+          f"{flops['matmuls']:.4g}, remat {flops['remat_forward']:.4g}, "
+          f"loss recompute {flops['loss_recompute']:.4g}, attention "
+          f"{flops['attention']:.4g}); losses {losses}; kernel launches a "
+          f"step 0; idle share {prof.get('idle_share')}; optimizer share "
+          f"of device time {rec['optimizer_share']}; kernel groups' shares "
+          f"{rec.get('group_shares')}")
+    print(f"train (b): the plain attention at a microbatch's shape "
+          f"{att['shape']}: forward {att['forward_ms']:.2f} ms, forward + "
+          f"backward {att['forward_backward_ms']:.2f} ms (about "
+          f"{att['step_share']:.3f} of the step); "
+          f"scaled_dot_product_attention forward + backward "
+          f"{att['sdpa_forward_backward_ms']:.2f} ms")
+    del model, st, step, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_attention_ms(cfg, dev, seed) -> dict:
+    """The plain training attention (``layers.flash_attention``, grouped)
+    alone at one microbatch of path 10 (b): its forward with gradients on
+    (tiles under checkpoint) and its forward + backward, events around 3
+    calls each; ``scaled_dot_product_attention`` forward + backward on the
+    same bf16 operands as the library yardstick."""
+    import torch
+    from torch.nn import functional as F
+    from repro_torch.configs import training
+    from repro_torch.models import layers
+    b = TRAIN_B // training.LM_MICROBATCHES
+    s = training.LM_TRAIN_SHAPES["train_4k"]["seq"]
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def leaf(heads):
+        return torch.randn((b, s, heads, dh), generator=g, device=dev,
+                           dtype=torch.bfloat16).requires_grad_()
+    q, k, v = leaf(h), leaf(kh), leaf(kh)
+    w = torch.randn((b, s, h, dh), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+
+    def fwd():
+        return layers.flash_attention(q, k, v, causal=True,
+                                      q_block=cfg.q_block,
+                                      k_block=cfg.k_block, grouped=True)
+
+    def fwd_bwd():
+        torch.autograd.grad((fwd() * w).float().sum(), (q, k, v))
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+        torch.autograd.grad((o.transpose(1, 2) * w).float().sum(), (q, k, v))
+    out = {"shape": (b, s, h, kh, dh), "forward_ms": cuda_ms(fwd, 3, 1),
+           "forward_backward_ms": cuda_ms(fwd_bwd, 3, 1),
+           "sdpa_forward_backward_ms": cuda_ms(sdpa, 3, 1)}
+    del q, k, v, w
+    return out
+
+
+def train_supervisor(dev) -> dict:
+    """Path 10 (c): ``launch.train.main`` on TRAIN_PRESET for TRAIN_STEPS
+    steps (the loss must fall), then ``train_loop`` on the same preset
+    twice, with a failure injected one step after a checkpoint (one
+    restart, a replay from that checkpoint) and uninterrupted: the losses
+    agree step by step within TRAIN_LOOP_REL.  Checkpoints go to a
+    temporary directory, removed after."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import CheckpointManager, LoopConfig, train_loop
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t = time.perf_counter()
+        rep = launch_train.main([
+            "--preset", TRAIN_PRESET, "--steps", str(TRAIN_STEPS),
+            "--device", "cuda", "--ckpt-dir", f"{tmp}/main",
+            "--ckpt-every", str(TRAIN_STEPS // 2)])
+        out["main_s"] = time.perf_counter() - t
+        if not rep.losses[-1] < rep.losses[0]:
+            fail(f"train (c): the loss did not fall ({rep.losses[0]} -> "
+                 f"{rep.losses[-1]})")
+        out["main_losses"] = (rep.losses[0], rep.losses[-1])
+        cfg = LoopConfig(n_steps=TRAIN_LOOP_STEPS, ckpt_every=TRAIN_CKPT)
+        fired = []
+
+        def inject(step):
+            if step == TRAIN_CKPT + 1 and not fired:
+                fired.append(step)
+                raise RuntimeError(f"injected failure at step {step}")
+        reports = []
+        for tag, injector in (("failed", inject), ("clean", None)):
+            state, step_fn, batch_at = launch_train.build(
+                TRAIN_PRESET, 8, 128, 3e-4, TRAIN_LOOP_STEPS, device=dev)
+            reports.append(train_loop(
+                state, step_fn, batch_at, CheckpointManager(f"{tmp}/{tag}"),
+                cfg, failure_injector=injector))
+        failed, clean = reports
+        if failed.restarts != 1 or clean.restarts != 0:
+            fail(f"train (c): restarts {failed.restarts} and "
+                 f"{clean.restarts}, not 1 and 0")
+        if len(failed.losses) != TRAIN_LOOP_STEPS + 1:
+            fail(f"train (c): {len(failed.losses)} losses, not one replay")
+        # the restart restored step TRAIN_CKPT and replayed it
+        replay = failed.losses[TRAIN_CKPT + 1]
+        merged = failed.losses[:TRAIN_CKPT + 1] + \
+            failed.losses[TRAIN_CKPT + 2:]
+        worst = 0.0
+        for i, (a, b) in enumerate([(replay, failed.losses[TRAIN_CKPT])]
+                                   + list(zip(merged, clean.losses))):
+            rel = abs(a - b) / abs(b)
+            worst = max(worst, rel)
+            if rel > TRAIN_LOOP_REL:
+                fail(f"train (c): losses {a!r} and {b!r} differ by {rel:.3g}"
+                     f" (pair {i})")
+        out.update(restarts=failed.restarts, max_rel_diff=worst,
+                   resumed_step=TRAIN_CKPT, losses_failed=failed.losses,
+                   losses_clean=clean.losses)
+    print(f"train (c): {TRAIN_PRESET} {TRAIN_STEPS} steps through "
+          f"launch.train in {out['main_s']:.1f} s, loss "
+          f"{out['main_losses'][0]:.3f} -> {out['main_losses'][1]:.3f}; a "
+          f"failure at step {TRAIN_CKPT + 1} restored step {TRAIN_CKPT} "
+          f"(1 restart), losses within {worst:.3g} of the clean run")
+    return out
+
+
+def train_step_timed(name, model, loss_fn, batch, before_seed) -> dict:
+    """Two steps of ``make_train_step`` (OPT_CFG): finite loss and grad
+    norm, every parameter changed; the second step timed."""
+    import math
+    import torch
+    from repro_torch.configs import training
+    from repro_torch.train import optimizer as opt, steps
+    before = sample_entries(model, 65536, before_seed)
+    st = opt.init_state(model)
+    step = steps.make_train_step(loss_fn, training.OPT_CFG)
+    batch = steps.to_device(batch, st.step.device)
+    rec = {}
+    for i in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, m = step(model, st, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            fail(f"train (d) {name} step {i}: loss {loss}, grad norm {norm}")
+        rec["first_ms" if i == 0 else "step_ms"] = ms
+        rec.setdefault("losses", []).append(loss)
+    rec["min_changed_share"] = check_changed(f"train (d) {name}", model,
+                                             before)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec
+
+
+def train_published(args, dev) -> dict:
+    """Path 10 (d): DIN and DLRM RM-2 at ``train_batch`` (B 65,536), SASRec
+    and two-tower at TRAIN_INBATCH_B (their (B, B) logits), the two-tower
+    and DLRM tables cut to TRAIN_RECSYS_ROWS, and the GAT at
+    TRAIN_GNN_SHAPES, each at its published width from seeded weights."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import gnn_archs, recsys_archs
+    from repro_torch.models import GAT, gnn
+    from repro_torch.models import recsys as rs
+    out = {}
+    full_b = recsys_archs.RECSYS_SHAPES["train_batch"]["batch"]
+    for name in ("din", "dlrm-rm2", "sasrec", "two-tower-retrieval"):
+        cfg = recsys_archs.ARCHS[name][0]()
+        rows = TRAIN_RECSYS_ROWS.get(name)
+        reduced = []
+        if rows is not None:
+            fields = ("user_vocab", "item_vocab") if hasattr(
+                cfg, "item_vocab") else ("vocab",)
+            reduced.append(f"{rows:,} rows a table, not "
+                           f"{getattr(cfg, fields[0]):,}")
+            cfg = dataclasses.replace(cfg, **{f: rows for f in fields})
+        b = TRAIN_INBATCH_B if name in ("sasrec", "two-tower-retrieval") \
+            else full_b
+        if b != full_b:
+            reduced.append(f"B {b:,}, not {full_b:,} (the (B, B) in-batch "
+                           f"logits)")
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        batch = recsys_pipeline(cfg, b, 0, args.seed)
+        draw_s = time.perf_counter() - t
+        model = rs.MODELS[name][1](cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(args.seed))
+        rec = train_step_timed(name, model, rs.recsys_loss, batch, args.seed)
+        rec.update(B=b, reduced=reduced, draw_s=draw_s,
+                   params=sum(p.numel() for p in model.parameters()))
+        print(f"train (d) [{card_line()}] {name}: B {b}, "
+              f"{rec['params'] / 1e6:.1f} M parameters, step "
+              f"{rec['step_ms']:.2f} ms (first {rec['first_ms']:.2f}), peak "
+              f"{rec['peak_gb']:.2f} GB, losses {rec['losses']}; reduced: "
+              f"{'; '.join(reduced) or 'none'}")
+        out[name] = rec
+        del model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(args.seed)
+    for shape in TRAIN_GNN_SHAPES:
+        sh = gnn_archs.GNN_SHAPES[shape]
+        torch.cuda.reset_peak_memory_stats()
+        feats, src, dst, graph_of, _ = gnn_graph(shape, sh, args.seed)
+        cfg = dataclasses.replace(gnn_archs.gat_cora(), d_in=sh["d_feat"])
+        model = GAT(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(args.seed))
+        batch = {"feats": feats, "src": src, "dst": dst}
+        if sh["kind"] == "pooled":
+            n = sh["n_graphs"]
+            batch.update(graph_of=graph_of, labels=rng.integers(
+                0, cfg.n_classes, n).astype(np.int32))
+
+            def loss_fn(m, b, n=n):
+                return gnn.pooled_loss(m, b["feats"], b["src"], b["dst"],
+                                       b["graph_of"], b["labels"], n)
+        else:
+            batch["labels"] = rng.integers(0, cfg.n_classes,
+                                           len(feats)).astype(np.int32)
+
+            def loss_fn(m, b):
+                return gnn.loss_fn(m, b["feats"], b["src"], b["dst"],
+                                   b["labels"])
+        rec = train_step_timed(f"gat {shape}", model, loss_fn, batch,
+                               args.seed)
+        rec.update(nodes=len(feats), edges=len(src))
+        print(f"train (d) [{card_line()}] gat {shape}: {len(feats)} nodes,"
+              f" {len(src)} edges, step {rec['step_ms']:.2f} ms (first "
+              f"{rec['first_ms']:.2f}), peak {rec['peak_gb']:.2f} GB, "
+              f"losses {rec['losses']}")
+        out[f"gat_{shape}"] = rec
+        del model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_compressed(dev, seed) -> dict:
+    """Path 10 (e): ``make_compressed_dp_step`` (qwen25_smoke, f32) on a
+    one-rank NCCL group (``make_host_mesh`` over the card, every
+    collective a real NCCL call) against the same step on the CPU in a
+    one-rank gloo group: loss and residuals within TRAIN_TOL * |x| +
+    TRAIN_TOL, the parameters by ``hold_params``, whose marked entries
+    here also take the code ties (the CPU's (g + r) / scale within
+    TRAIN_CODE_TIE of a half: the card may round that code the other
+    way)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import lm_archs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Transformer
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import optimizer as opt, steps
+    cfg = dataclasses.replace(lm_archs.qwen25_smoke(), q_block=16,
+                              k_block=32)
+    base = Transformer(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(seed))
+    batch = TokenPipeline(cfg.vocab_size, 4, 64, seed).batch_at(0)
+    ocfg = opt.AdamWConfig(**TRAIN_SMOKE_OPT)
+
+    def loss_fn(m, b):
+        return tr.lm_loss(m, b["tokens"])
+
+    def run(device, backend):
+        pg = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+        dist.init_process_group(backend, init_method=f"file://{pg}/init",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_host_mesh(device=device)
+            model = Transformer(cfg, device=mesh.device, init=False)
+            model.load_state_dict(base.state_dict())
+            st, res = opt.init_state(model), opt.init_residual(model)
+            step = steps.make_compressed_dp_step(loss_fn, ocfg, mesh,
+                                                 dp_axes=("data",))
+            _, _, _, m = step(model, st, res, batch)
+            return model, res, m
+        finally:
+            dist.destroy_process_group()
+            shutil.rmtree(pg, ignore_errors=True)
+
+    cpu, res_c, mc = run("cpu", "gloo")
+    card, res_g, mg = run("cuda", "nccl")
+    _, g = steps.value_and_grad(loss_fn, base, batch)
+    marked = near_zero(g)
+    ties = 0
+    for n, t in g.items():
+        x = t.float()
+        q = x / torch.clamp(x.abs().max() / 127.0, min=1e-12)
+        tie = ((q.abs() - q.abs().floor()) - 0.5).abs() < TRAIN_CODE_TIE
+        ties += int(tie.sum())
+        marked[n] = marked[n] | tie
+    rec = {"loss": check_close("train (e) compressed step loss, NCCL card "
+                               "vs gloo CPU", mg["loss"].reshape(1).cpu(),
+                               mc["loss"].reshape(1), TRAIN_TOL, TRAIN_TOL),
+           "params": hold_params("train (e) compressed step params", card,
+                                 cpu, marked, float(mc["lr"])),
+           "code_ties": ties}
+    worst = 0.0
+    for n, r in res_c.items():
+        ok = ~marked[n]
+        diff = (res_g[n].cpu() - r).abs()
+        over = (diff > TRAIN_TOL * r.abs() + TRAIN_TOL) & ok
+        if bool(over.any()):
+            fail(f"train (e): residual {n} differs at {int(over.sum())} "
+                 f"entries, max {float(diff[ok].max()):.3g}")
+        worst = max(worst, float(diff[ok].max()) if bool(ok.any()) else 0.0)
+    rec["residual"] = worst
+    print(f"train (e): compressed step on one NCCL rank = one gloo rank on "
+          f"the CPU (loss {float(mc['loss']):.6f}, params max |diff| "
+          f"{rec['params']:.3g}, residual {worst:.3g}; {ties} code ties)")
+    return rec
+
+
+def run_train(args, dev, start_path, end_path, counters) -> dict:
+    """Path 10: training on the card, (a) to (e)."""
+    import torch
+    t_path = time.perf_counter()
+    out = {"card": card_line()}
+    start_path()
+    t = time.perf_counter()
+    out["card_vs_cpu"] = train_card_vs_cpu(dev, args.seed)
+    out["a_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["qwen25_14b"] = train_lm_full(dev, args.seed, counters)
+    out["b_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["supervisor"] = train_supervisor(dev)
+    out["c_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["published"] = train_published(args, dev)
+    out["d_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["compressed"] = train_compressed(dev, args.seed)
+    out["e_s"] = time.perf_counter() - t
+    out["launches"] = end_path("train", ())
+    if any(out["launches"].values()):
+        fail("train: the training path launched a kernel of the port")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["path_s"] = time.perf_counter() - t_path
+    print(f"train path: (a) {out['a_s']:.1f} s, (b) {out['b_s']:.1f} s, "
+          f"(c) {out['c_s']:.1f} s, (d) {out['d_s']:.1f} s, (e) "
+          f"{out['e_s']:.1f} s")
     return out
 
 

@@ -1,6 +1,7 @@
 """Model configurations, as plain data: the LM architectures
-(``lm_archs``), the recsys architectures with their serving shapes
-(``recsys_archs``) and the GAT with its graph shapes (``gnn_archs``)."""
-from . import gnn_archs, lm_archs, recsys_archs
+(``lm_archs``), the recsys architectures with their serving and training
+shapes (``recsys_archs``), the GAT with its graph shapes (``gnn_archs``)
+and the training cells' optimizer and LM shapes (``training``)."""
+from . import gnn_archs, lm_archs, recsys_archs, training
 
-__all__ = ["gnn_archs", "lm_archs", "recsys_archs"]
+__all__ = ["gnn_archs", "lm_archs", "recsys_archs", "training"]

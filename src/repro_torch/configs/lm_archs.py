@@ -21,7 +21,7 @@ def mistral_large_smoke() -> TransformerConfig:
     return TransformerConfig(
         n_layers=2, d_model=128, n_heads=8, n_kv_heads=2, d_head=16,
         d_ff=256, vocab_size=512,
-        compute_dtype=torch.float32)
+        compute_dtype=torch.float32, remat=False)
 
 
 # -- granite-34b [arXiv:2405.04324] — llama-arch code model, MQA ------------
@@ -36,7 +36,7 @@ def granite_smoke() -> TransformerConfig:
     return TransformerConfig(
         n_layers=2, d_model=96, n_heads=6, n_kv_heads=1, d_head=16,
         d_ff=192, vocab_size=512,
-        compute_dtype=torch.float32)
+        compute_dtype=torch.float32, remat=False)
 
 
 # -- qwen2.5-14b [hf:Qwen/Qwen2.5-14B] — GQA + QKV bias ---------------------
@@ -51,7 +51,7 @@ def qwen25_smoke() -> TransformerConfig:
     return TransformerConfig(
         n_layers=2, d_model=80, n_heads=5, n_kv_heads=1, d_head=16,
         d_ff=160, vocab_size=512, qkv_bias=True,
-        compute_dtype=torch.float32)
+        compute_dtype=torch.float32, remat=False)
 
 
 # -- qwen3-moe-235b-a22b [hf:Qwen/Qwen3-235B-A22B] — 128e top-8 -------------
@@ -67,7 +67,7 @@ def qwen3_moe_smoke() -> TransformerConfig:
     return TransformerConfig(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
         d_ff=0, vocab_size=512,
-        compute_dtype=torch.float32,
+        compute_dtype=torch.float32, remat=False,
         moe=MoEConfig(n_experts=8, top_k=2, d_ff=32, group_size=64))
 
 
@@ -85,6 +85,6 @@ def llama4_scout_smoke() -> TransformerConfig:
     return TransformerConfig(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
         d_ff=0, vocab_size=512,
-        compute_dtype=torch.float32,
+        compute_dtype=torch.float32, remat=False,
         moe=MoEConfig(n_experts=4, top_k=1, d_ff=64, n_shared=1,
                       group_size=64))

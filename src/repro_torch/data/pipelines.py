@@ -1,7 +1,8 @@
 """Deterministic batch pipelines, the JAX package's ``data/pipelines.py``:
 every batch is a pure function of (seed, step), drawn in host numpy, so
-both packages give the same bytes for the same (seed, step).
-``TokenPipeline`` comes with training."""
+both packages give the same bytes for the same (seed, step).  The cursor
+is the step index, so a training run resumed from a checkpoint's step
+regenerates exactly the batches that followed it (``train/loop.py``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -13,6 +14,26 @@ import numpy as np
 def _rng(seed: int, step: int) -> np.random.Generator:
     return np.random.default_rng(
         np.random.SeedSequence([seed, step + 1_000_003]))
+
+
+@dataclass(frozen=True)
+class TokenPipeline:
+    """Zipf-distributed synthetic token stream with Markov-ish locality so
+    the loss actually decreases during smoke training."""
+    vocab_size: int
+    batch: int
+    seq_len: int
+    seed: int = 0
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        rng = _rng(self.seed, step)
+        b, s, v = self.batch, self.seq_len, self.vocab_size
+        # structured stream: tokens repeat locally (predictable structure)
+        base = rng.zipf(1.3, size=(b, s)).astype(np.int64) % v
+        rep = rng.random((b, s)) < 0.5
+        tokens = base.copy()
+        tokens[:, 1:] = np.where(rep[:, 1:], tokens[:, :-1], base[:, 1:])
+        return {"tokens": tokens.astype(np.int32)}
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,8 @@
-"""The model stack's serving paths: the layers, the transformer (dense and
-MoE; prefill and decode), the four recsys models (DIN, SASRec, two-tower,
-DLRM RM-2) with their serve and retrieval functions, the GAT forward, and
-the conversion of the JAX package's weights."""
+"""The model stack: the layers, the transformer (dense and MoE; prefill,
+decode, and the training forward and losses), the four recsys models
+(DIN, SASRec, two-tower, DLRM RM-2) with their serve, retrieval and
+training losses, the GAT forward and losses, and the conversion of the
+JAX package's weights, gradients and optimizer state."""
 from .convert import (config_from_jax, gnn_config_from_jax,
                       gnn_params_from_jax, params_from_jax,
                       recsys_config_from_jax, recsys_params_from_jax)

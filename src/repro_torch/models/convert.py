@@ -9,9 +9,12 @@ the port's config from a dict of the reference config's fields
 (``dataclasses.asdict`` of it).  ``recsys_params_from_jax`` and
 ``recsys_config_from_jax`` do the same for the four recsys models, and
 ``gnn_params_from_jax`` and ``gnn_config_from_jax`` for the GAT, whose
-trees the port keeps name for name.  This is how a JAX checkpoint's
-weights reach the port, and how the parity tests give both packages one
-model.
+trees the port keeps name for name.  ``named_from_jax`` maps any tree of
+a model's structure (its gradients, AdamW moments) onto the port's
+parameter names, and ``adamw_state_from_jax`` a whole optimizer state.
+This is how a JAX checkpoint's weights reach the port, and how the
+parity tests give both packages one model and hold each gradient and
+optimizer leaf against the reference.
 """
 from __future__ import annotations
 
@@ -25,11 +28,11 @@ from .gnn import GAT, GATConfig
 from .recsys import MODELS
 from .transformer import MoEConfig, Transformer, TransformerConfig
 
-# the reference's mesh fields, attention switches and training's remat,
-# which the port drops, and the MoE fields that the port's MoEConfig keeps
-# (all but the reference's ``impl``)
+# the reference's mesh fields and attention switch, which the port drops,
+# and the MoE fields that the port's MoEConfig keeps (all but the
+# reference's ``impl``)
 DROPPED_FIELDS = ("dp_axes", "tp_axis", "seq_shard_activations",
-                  "attn_impl", "attn_grouped", "remat")
+                  "attn_impl")
 MOE_FIELDS = tuple(f.name for f in dataclasses.fields(MoEConfig))
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -53,8 +56,8 @@ def _torch_dtype(x) -> torch.dtype:
 
 def config_from_jax(fields: Dict[str, Any]) -> TransformerConfig:
     """The port's config from the reference config's fields (its mesh
-    fields, attention switches, ``remat`` and the MoE's ``impl`` dropped,
-    dtypes made torch dtypes)."""
+    fields, ``attn_impl`` and the MoE's ``impl`` dropped, dtypes made
+    torch dtypes)."""
     f = {k: v for k, v in fields.items() if k not in DROPPED_FIELDS}
     moe = f.get("moe")
     if moe is not None and not isinstance(moe, MoEConfig):
@@ -66,33 +69,67 @@ def config_from_jax(fields: Dict[str, Any]) -> TransformerConfig:
     return TransformerConfig(**f)
 
 
+def _f32(a) -> np.ndarray:
+    # through f32: numpy has no bfloat16 that torch reads
+    return np.array(a, dtype=np.float32)
+
+
+def lm_named_from_jax(tree: Dict[str, Any], cfg: TransformerConfig
+                      ) -> Dict[str, np.ndarray]:
+    """A tree of the reference LM's structure (its parameters, their
+    gradients, or AdamW moments), layer-stacked leaves unstacked, as f32
+    numpy arrays by the port's parameter names (``blocks.3.wq``, ...).
+    An MoE block's ``moe.*`` and ``shared_mlp.*`` leaves come from the
+    trees of those names."""
+    out = {k: _f32(tree[k]) for k in ("embed", "ln_f", "lm_head")}
+    names = Transformer(cfg, device="meta", init=False).blocks
+    for name, _ in (names[0].named_parameters() if len(names) else ()):
+        leaf = tree
+        for key in _BLOCK_LEAVES.get(name, name.split(".")):
+            leaf = leaf[key]
+        stacked = _f32(leaf)
+        for i in range(cfg.n_layers):
+            out[f"blocks.{i}.{name}"] = stacked[i]
+    return out
+
+
+def named_from_jax(tree, cfg=None) -> Dict[str, np.ndarray]:
+    """A parameter-shaped tree of the reference (parameters, gradients or
+    AdamW moments) as f32 numpy arrays by the port's parameter names: the
+    LM's through ``lm_named_from_jax`` when ``cfg`` is a
+    ``TransformerConfig``; the recsys models' and the GAT's, whose trees
+    the port keeps name for name, by their dotted paths."""
+    if isinstance(cfg, TransformerConfig):
+        return lm_named_from_jax(tree, cfg)
+    return {name: _f32(leaf) for name, leaf in _flatten(tree)}
+
+
+def adamw_state_from_jax(state, cfg=None, device="cuda"):
+    """The reference's ``AdamWState`` (step, m, v) as the port's, on
+    ``device``: the step an int32 scalar, the moments f32 by parameter
+    name (``named_from_jax``)."""
+    from ..train.optimizer import AdamWState
+    dev = torch.device(device)
+
+    def moments(tree):
+        return {n: torch.from_numpy(a).to(dev)
+                for n, a in named_from_jax(tree, cfg).items()}
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev),
+        m=moments(state.m), v=moments(state.v))
+
+
 def params_from_jax(params: Dict[str, Any], cfg: TransformerConfig,
                     device="cuda", dtype: Optional[torch.dtype] = None
                     ) -> Transformer:
     """A ``Transformer`` on ``device`` holding ``params``' weights, stored
-    in ``dtype`` (``cfg.param_dtype`` by default).  An MoE block's
-    ``moe.*`` and ``shared_mlp.*`` weights come from the trees of those
-    names."""
+    in ``dtype`` (``cfg.param_dtype`` by default)."""
     if dtype is not None:
         cfg = dataclasses.replace(cfg, param_dtype=dtype)
     model = Transformer(cfg, device=device, init=False)
-
-    def tensor(a):
-        # through f32: numpy has no bfloat16 that torch reads
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
-    state = {"embed": tensor(params["embed"]),
-             "ln_f": tensor(params["ln_f"]),
-             "lm_head": tensor(params["lm_head"])}
-    layer0 = model.blocks[0].named_parameters() if len(model.blocks) else ()
-    for name, _ in layer0:
-        leaf = params
-        for key in _BLOCK_LEAVES.get(name, name.split(".")):
-            leaf = leaf[key]
-        stacked = tensor(leaf)
-        for i in range(cfg.n_layers):
-            state[f"blocks.{i}.{name}"] = stacked[i]
-    model.load_state_dict(state)
+    model.load_state_dict({n: torch.from_numpy(a) for n, a in
+                           lm_named_from_jax(params, cfg).items()})
     return model
 
 
@@ -127,9 +164,8 @@ def recsys_params_from_jax(model_name: str, params: Dict[str, Any], cfg,
     ``np.asarray`` reads) in f32; the two trees must name the same
     tensors."""
     model = MODELS[model_name][1](cfg, device=device, init=False)
-    state = {name: torch.from_numpy(np.array(leaf, dtype=np.float32))
-             for name, leaf in _flatten(params)}
-    model.load_state_dict(state)
+    model.load_state_dict({n: torch.from_numpy(a)
+                           for n, a in named_from_jax(params).items()})
     return model
 
 
@@ -145,7 +181,6 @@ def gnn_params_from_jax(params: Dict[str, Any], cfg: GATConfig,
     ``init_params`` tree, ``{"layers": [{"w", "a_src", "a_dst", "b"},
     ...]}``) in f32."""
     model = GAT(cfg, device=device, init=False)
-    model.load_state_dict({
-        name: torch.from_numpy(np.array(leaf, dtype=np.float32))
-        for name, leaf in _flatten(params)})
+    model.load_state_dict({n: torch.from_numpy(a)
+                           for n, a in named_from_jax(params).items()})
     return model

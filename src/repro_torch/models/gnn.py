@@ -6,8 +6,11 @@ destination's incoming edges -> weighted sum of the messages into the
 destination.  The edges are sorted by destination once (stably) and every
 segment reduction reads them in that order, with no atomics
 (``layers.reduce_sorted``), so a forward gives the same bits on every run.
-The reference's edge-parallel ``axis`` (``_psum``/``_pmax``) waits for the
-sharding specs and ``loss_fn`` for training.
+The training losses are the reference's ``loss_fn`` (node classification,
+with an optional label mask) and the pooled molecule loss of its
+``families._make_gnn_pooled_step`` (``pooled_loss``), in their one-device
+form; the edge-parallel ``axis`` (``_psum``/``_pmax``) waits for the
+sharding specs.
 """
 from __future__ import annotations
 
@@ -101,7 +104,9 @@ def _gat_layer_sorted(lp: GATLayer, h: Tensor, src: Tensor, dst: Tensor,
     s_src = torch.sum(wh * lp.a_src.to(h.dtype), dim=-1)       # (N, H)
     s_dst = torch.sum(wh * lp.a_dst.to(h.dtype), dim=-1)
     e = F.leaky_relu(s_src[src] + s_dst[dst], cfg.negative_slope)
-    smax = reduce_sorted(e, lengths, "max")
+    # no gradient through the max, which cancels in the softmax (the
+    # reference's stop_gradient)
+    smax = reduce_sorted(e.detach(), lengths, "max")
     smax = torch.clamp(torch.nan_to_num(smax, neginf=-1e30), min=-1e30)
     ex = torch.exp(e - smax[dst])
     del e
@@ -156,3 +161,28 @@ def graph_pool_logits(model: GAT, feats: Tensor, src: Tensor, dst: Tensor,
     sums = segment_sum(node_logits, graph_of, n_graphs)
     cnt = torch.bincount(graph_of, minlength=n_graphs).float()
     return sums / torch.clamp(cnt[:, None], min=1.0)
+
+
+def _nll(logits: Tensor, labels: Tensor) -> Tensor:
+    gold = torch.gather(logits, 1, labels.long()[:, None])[:, 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def loss_fn(model: GAT, feats: Tensor, src: Tensor, dst: Tensor,
+            labels: Tensor, label_mask: Optional[Tensor] = None) -> Tensor:
+    """Node classification: the cross-entropy of the node logits, the mean
+    over the nodes, or over ``label_mask``'s weight (``sum(nll * mask) /
+    max(sum(mask), 1)``)."""
+    nll = _nll(forward(model, feats, src, dst), labels.to(model.device))
+    if label_mask is not None:
+        mask = label_mask.to(model.device).float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def pooled_loss(model: GAT, feats: Tensor, src: Tensor, dst: Tensor,
+                graph_of: Tensor, labels: Tensor, n_graphs: int) -> Tensor:
+    """Graph classification over batched small graphs (the ``molecule``
+    shape): the mean cross-entropy of ``graph_pool_logits``."""
+    logits = graph_pool_logits(model, feats, src, dst, graph_of, n_graphs)
+    return torch.mean(_nll(logits, labels.to(model.device)))

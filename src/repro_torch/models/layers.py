@@ -1,7 +1,8 @@
 """The JAX package's ``models/layers.py`` in PyTorch: the LM half (norm,
-rotary embedding, decode attention) and the MLP and embedding half of the
-recsys models (``init_mlp``, ``apply_mlp``, ``embedding_bag``, and
-``take_fill``, ``jnp.take``'s default gather).
+rotary embedding, the training attention ``flash_attention``, decode
+attention) and the MLP and embedding half of the recsys models
+(``init_mlp``, ``apply_mlp``, ``embedding_bag``, and ``take_fill``,
+``jnp.take``'s default gather).
 
 Conventions kept from the reference: weights are used as ``x @ W`` with
 ``W`` of shape ``(d_in, d_out)``; the parameter dtype and the compute
@@ -23,6 +24,8 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import NEG_INF
 
@@ -64,6 +67,104 @@ def apply_rope(x: Tensor, positions: Tensor, freqs: Tensor) -> Tensor:
     out2 = x2 * cos + x1 * sin
     out = torch.stack([out1, out2], dim=-1).reshape(x.shape)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Training attention (blockwise online softmax, autograd)
+# ---------------------------------------------------------------------------
+
+def _attn_tile(m_run, l_run, o_run, qb, kb, vb, mask, scale: float,
+               grouped: bool):
+    """One (q-block, k-block) tile folded into the running (max, sum,
+    output): the reference's ``_attn_block`` (``_attn_block_grouped``)
+    and its scan step.  Scores in f32 from f32 copies of the operands
+    (exact: the reference's ``preferred_element_type=f32``), masked to
+    -1e30, p rounded to v's dtype before the PV product."""
+    if grouped:      # q (b, qb, g, r, d) against unrepeated k/v (b, kb, g, d)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qb.float(), kb.float()) * scale
+        s = torch.where(mask[:, None], s, NEG_INF)
+    else:
+        s = torch.einsum("bqhd,bkhd->bhqk", qb.float(), kb.float()) * scale
+        s = torch.where(mask, s, NEG_INF)
+    m_blk = torch.amax(s, dim=-1)
+    p = torch.exp(s - m_blk[..., None])
+    l_blk = torch.sum(p, dim=-1)
+    pv = "bgrqk,bkgd->bqgrd" if grouped else "bhqk,bkhd->bqhd"
+    o_blk = torch.einsum(pv, p.to(vb.dtype).float(), vb.float())
+    m_new = torch.maximum(m_run, m_blk)
+    a1 = torch.exp(m_run - m_new)
+    a2 = torch.exp(m_blk - m_new)
+    # (b, g, r, q) -> (b, q, g, r, 1), or (b, h, q) -> (b, q, h, 1)
+    perm = (0, 3, 1, 2) if grouped else (0, 2, 1)
+    return (m_new, l_run * a1 + l_blk * a2,
+            o_run * a1.permute(perm)[..., None]
+            + o_blk * a2.permute(perm)[..., None])
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                    q_block: int = 512, k_block: int = 1024,
+                    grouped: bool = False) -> Tensor:
+    """The reference's blockwise attention (``layers.flash_attention``),
+    the one its training path runs, in plain PyTorch with autograd (not
+    the CUDA kernel, which has no backward).  q: (B, Sq, H, dh); k/v:
+    (B, Sk, KH, dh), H % KH == 0; query and key positions both start at
+    0 (the reference's ``q_offset``, which no caller of the port sets).
+
+    Every (q-block, k-block) tile is computed, the fully masked ones too,
+    with a running max, sum and f32 output per query block; the sum is
+    floored at 1e-20 and the output cast to q's dtype.  ``grouped``
+    contracts against the unrepeated K/V; otherwise K/V are repeated to H
+    heads first.  With gradients on, each tile runs under
+    ``torch.utils.checkpoint``, so the backward recomputes its scores (the
+    reference's inner ``jax.checkpoint``): autograd keeps no (qb, kb)
+    tile of scores."""
+    b, sq, h, dh = q.shape
+    _, sk, kh, _ = k.shape
+    if h % kh:
+        raise ValueError(f"{h} query heads do not group over {kh} kv heads")
+    rep = h // kh
+    if not grouped and rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = 1.0 / math.sqrt(dh)
+    q_block, k_block = min(q_block, sq), min(k_block, sk)
+    nq, nk = -(-sq // q_block), -(-sk // k_block)
+    sq_pad, sk_pad = nq * q_block, nk * k_block
+    q = F.pad(q, (0, 0, 0, 0, 0, sq_pad - sq))
+    k = F.pad(k, (0, 0, 0, 0, 0, sk_pad - sk))
+    v = F.pad(v, (0, 0, 0, 0, 0, sk_pad - sk))
+    dev = q.device
+    qpos = torch.arange(sq_pad, device=dev).reshape(nq, q_block)
+    kpos = torch.arange(sk_pad, device=dev).reshape(nk, k_block)
+    kvalid = (torch.arange(sk_pad, device=dev) < sk).reshape(nk, k_block)
+    lead = (b, kh, rep) if grouped else (b, h)
+    remat = torch.is_grad_enabled()
+
+    def tile(*a):
+        if remat:
+            return checkpoint(_attn_tile, *a, scale, grouped,
+                              use_reentrant=False, preserve_rng_state=False)
+        return _attn_tile(*a, scale, grouped)
+
+    outs = []
+    for qi in range(nq):
+        qb = q[:, qi * q_block:(qi + 1) * q_block]
+        if grouped:
+            qb = qb.reshape(b, q_block, kh, rep, dh)
+        m = torch.full((*lead, q_block), NEG_INF, device=dev)
+        l = torch.zeros((*lead, q_block), device=dev)       # noqa: E741
+        o = torch.zeros((b, q_block, *lead[1:], dh), device=dev)
+        for ki in range(nk):
+            mask = kvalid[ki][None, None, None, :]
+            if causal:
+                cm = qpos[qi][:, None] >= kpos[ki][None, :]
+                mask = mask & cm[None, None]
+            ks = slice(ki * k_block, (ki + 1) * k_block)
+            m, l, o = tile(m, l, o, qb, k[:, ks], v[:, ks], mask)
+        perm = (0, 3, 1, 2) if grouped else (0, 2, 1)
+        denom = torch.clamp(l, min=1e-20).permute(perm)[..., None]
+        outs.append((o / denom).reshape(b, q_block, h, dh))
+    return torch.cat(outs, dim=1)[:, :sq].to(q.dtype)
 
 
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,

@@ -16,8 +16,11 @@ candidates, ``user_repr`` the queries, and retrieval is a maximum inner
 product search over unit-norm embeddings, exact (``retrieval_scores``)
 or through ``QuakeIndex(metric="ip")``.  ``recsys_serve`` and
 ``recsys_retrieval`` are the reference's serve and retrieval adapters
-(``configs/families.py``), with an optional chunk of rows.  The losses
-wait for the training slice.
+(``configs/families.py``), with an optional chunk of rows.  The training
+losses are the reference's: ``din_loss`` and ``dlrm_loss`` (logistic
+loss on the click label), ``sasrec_loss`` (in-batch softmax over next
+items) and ``twotower_loss`` (in-batch softmax with the logQ
+correction).
 """
 from __future__ import annotations
 
@@ -301,6 +304,61 @@ def dlrm_forward(model: DLRM, batch: Batch) -> Tensor:
     iu, ju = torch.triu_indices(f, f, 1, device=feats.device)
     x = torch.cat([dense, inter[:, iu, ju]], dim=-1)
     return apply_mlp(model.top, x, act=torch.relu)[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# Training losses
+# ---------------------------------------------------------------------------
+
+def _logistic(logit: Tensor, y: Tensor) -> Tensor:
+    """The mean of the stable binary cross-entropy ``max(z, 0) - z * y +
+    log1p(exp(-|z|))``."""
+    return torch.mean(torch.clamp(logit, min=0) - logit * y
+                      + torch.log1p(torch.exp(-torch.abs(logit))))
+
+
+def _in_batch_softmax(logits: Tensor) -> Tensor:
+    """Mean cross-entropy of (B, B) logits whose row b's label is b."""
+    return torch.mean(torch.logsumexp(logits, dim=-1)
+                      - torch.diagonal(logits))
+
+
+def din_loss(model: DIN, batch: Batch) -> Tensor:
+    return _logistic(din_forward(model, batch), batch["label"])
+
+
+def sasrec_loss(model: SASRec, batch: Batch) -> Tensor:
+    """In-batch sampled softmax over next items: each row's target item is
+    its positive and the other rows' targets its negatives."""
+    h = sasrec_encode(model, batch["history"], batch["history_mask"])
+    tgt = take_fill(model.item_embed, batch["target_item"])
+    return _in_batch_softmax(h @ tgt.T)
+
+
+def twotower_loss(model: TwoTower, batch: Batch) -> Tensor:
+    """In-batch sampled softmax at ``temperature`` with the logQ
+    correction: the in-batch negatives are Zipf-skewed, so each column's
+    logit is raised by ``log1p(item id)`` (minus the log of its Zipf
+    propensity, up to a constant)."""
+    u = user_repr(model, batch)
+    v = item_repr(model, batch["target_item"])
+    logits = (u @ v.T) / model.cfg.temperature
+    logq = -torch.log1p(batch["target_item"].float())
+    return _in_batch_softmax(logits - logq[None, :])
+
+
+def dlrm_loss(model: DLRM, batch: Batch) -> Tensor:
+    return _logistic(dlrm_forward(model, batch), batch["label"])
+
+
+# the losses by model class
+LOSSES = {DIN: din_loss, SASRec: sasrec_loss, TwoTower: twotower_loss,
+          DLRM: dlrm_loss}
+
+
+def recsys_loss(model, batch: Batch) -> Tensor:
+    """The training loss of ``model``'s family."""
+    return LOSSES[type(model)](model, batch)
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,22 @@
 """Decoder-only transformer LM (dense + MoE), GQA, RoPE, flash attention:
-the serving path of the JAX package's ``models/transformer.py`` in
-PyTorch.
+the JAX package's ``models/transformer.py`` in PyTorch.
 
 Paths:
   * ``Transformer.prefill``     — full-prompt forward; emits the KV cache
                                   (attention through the hand-written
                                   flash kernel on the card)
   * ``Transformer.decode_step`` — one token against the KV cache
+  * ``forward_train``, ``hidden_states``, ``lm_loss``,
+    ``lm_loss_chunked`` — the training forward and losses, with
+                                  autograd, through the plain blockwise
+                                  attention (``layers.flash_attention``),
+                                  as the reference trains
   * ``moe_ffn``                 — the GShard top-k MoE FFN with capacity
-                                  that both run on an MoE config
+                                  that all of them run on an MoE config
 
 Weights keep the reference's orientation (``x @ W``, ``W`` as
-``(d_in, d_out)``) and its cache layout ``(L, B, S, KH, dh)``.  Training
-(``forward_train``, the losses, ``hidden_states``) and the sharding
-specs are not ported.
+``(d_in, d_out)``) and its cache layout ``(L, B, S, KH, dh)``.  The
+sharding specs are not ported.
 """
 from __future__ import annotations
 
@@ -25,10 +28,13 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from torch.utils.checkpoint import checkpoint
+
 from ..core.device import resolve_device
 from ..kernels.flash_attention import flash_attention
 from .layers import (apply_rope, decode_attention, dense_init, rmsnorm,
                      rope_frequencies)
+from .layers import flash_attention as train_attention
 
 Tensor = torch.Tensor
 
@@ -48,10 +54,11 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class TransformerConfig:
-    """The reference's model fields; its mesh fields (``dp_axes``,
-    ``tp_axis``, ``seq_shard_activations``), attention switches
-    (``attn_impl``, ``attn_grouped``) and training's ``remat`` are
-    dropped: the port serves, always against unrepeated K/V."""
+    """The reference's model fields but its mesh fields (``dp_axes``,
+    ``tp_axis``, ``seq_shard_activations``) and ``attn_impl``: serving
+    always runs the flash kernel on the card, against unrepeated K/V.
+    ``remat`` and ``attn_grouped`` steer training only (one checkpoint per
+    layer; the training attention's grouped or repeat path)."""
     n_layers: int
     d_model: int
     n_heads: int
@@ -64,8 +71,10 @@ class TransformerConfig:
     moe: Optional[MoEConfig] = None
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
-    q_block: int = 512             # tiles of the plain attention (CPU)
+    remat: bool = True
+    q_block: int = 512             # tiles of the plain attention
     k_block: int = 1024
+    attn_grouped: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -238,15 +247,16 @@ def moe_ffn(moe: MoE, x: Tensor, cfg: TransformerConfig
     return out, r.aux
 
 
-def _ffn(lp: Block, x: Tensor, cfg: TransformerConfig) -> Tensor:
-    """The block's FFN: the dense SwiGLU, or the MoE plus the shared
-    experts.  The MoE's aux term is dropped: serving has no loss."""
+def _ffn(lp: Block, x: Tensor, cfg: TransformerConfig
+         ) -> Tuple[Tensor, Optional[Tensor]]:
+    """The block's FFN: (the dense SwiGLU, None), or (the MoE plus the
+    shared experts, the MoE's aux term)."""
     if cfg.moe is None:
-        return _swiglu(lp, x)
-    out, _ = moe_ffn(lp.moe, x, cfg)
+        return _swiglu(lp, x), None
+    out, aux = moe_ffn(lp.moe, x, cfg)
     if cfg.moe.n_shared:
         out = out + _swiglu(lp.shared_mlp, x)
-    return out
+    return out, aux
 
 
 class Transformer(nn.Module):
@@ -318,7 +328,7 @@ class Transformer(nn.Module):
                             k_block=cfg.k_block)
             att = att.reshape(b, s, cfg.n_heads * cfg.head_dim)
             x = x + att @ lp.wo.to(x.dtype)
-            x = x + _ffn(lp, rmsnorm(x, lp.ln2.to(x.dtype)), cfg)
+            x = x + _ffn(lp, rmsnorm(x, lp.ln2.to(x.dtype)), cfg)[0]
             cache_k[i] = k
             cache_v[i] = v
         return self._logits(x[:, -1:])[:, 0], (cache_k, cache_v)
@@ -351,8 +361,114 @@ class Transformer(nn.Module):
             att = decode_attention(q, ck, cv, cache_len + 1)
             att = att.reshape(x.shape[0], 1, cfg.n_heads * cfg.head_dim)
             x = x + att @ lp.wo.to(x.dtype)
-            x = x + _ffn(lp, rmsnorm(x, lp.ln2.to(x.dtype)), cfg)
+            x = x + _ffn(lp, rmsnorm(x, lp.ln2.to(x.dtype)), cfg)[0]
         return self._logits(x)[:, 0], (cache_k, cache_v)
+
+
+# ---------------------------------------------------------------------------
+# Training: the forward with autograd, and the losses
+# ---------------------------------------------------------------------------
+
+def block(lp: Block, x: Tensor, positions: Tensor, cfg: TransformerConfig,
+          freqs: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+    """One decoder layer for training: (x out, the MoE aux term or None).
+    Attention is the plain blockwise one (``layers.flash_attention``, the
+    reference's jnp path), grouped or repeated by ``cfg.attn_grouped``."""
+    b, s, _ = x.shape
+    h = rmsnorm(x, lp.ln1.to(x.dtype))
+    q, k, v = _qkv(lp, h, cfg)
+    q = apply_rope(q, positions, freqs)
+    k = apply_rope(k, positions, freqs)
+    att = train_attention(q, k, v, causal=True, q_block=cfg.q_block,
+                          k_block=cfg.k_block, grouped=cfg.attn_grouped)
+    x = x + att.reshape(b, s, cfg.n_heads * cfg.head_dim) @ lp.wo.to(x.dtype)
+    f, aux = _ffn(lp, rmsnorm(x, lp.ln2.to(x.dtype)), cfg)
+    return x + f, aux
+
+
+def hidden_states(model: Transformer, tokens,
+                  cfg: Optional[TransformerConfig] = None
+                  ) -> Tuple[Tensor, Tensor]:
+    """tokens (B, S) -> (the final norm's output (B, S, D) in the compute
+    dtype, the MoE aux terms summed over the layers, f32).  With
+    ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``, which
+    saves only its input (the reference's ``nothing_saveable``).  ``cfg``
+    defaults to the model's (a replacement must keep its shapes)."""
+    cfg = cfg or model.cfg
+    dev = model.device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    b, s = tokens.shape
+    x = model.embed[tokens].to(cfg.compute_dtype)
+    positions = torch.arange(s, device=dev).expand(b, s)
+    freqs = rope_frequencies(cfg.head_dim, cfg.rope_theta, dev)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in model.blocks:
+        if remat:
+            x, a = checkpoint(block, lp, x, positions, cfg, freqs,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = block(lp, x, positions, cfg, freqs)
+        if a is not None:
+            aux = aux + a
+    return rmsnorm(x, model.ln_f.to(x.dtype)), aux
+
+
+def forward_train(model: Transformer, tokens,
+                  cfg: Optional[TransformerConfig] = None
+                  ) -> Tuple[Tensor, Tensor]:
+    """tokens (B, S) -> (logits (B, S, V) f32, aux f32 scalar)."""
+    x, aux = hidden_states(model, tokens, cfg)
+    return (x @ model.lm_head.to(x.dtype)).float(), aux
+
+
+def _nll(lg: Tensor, tgt: Tensor) -> Tensor:
+    """Per-position ``logsumexp(lg) - lg[tgt]`` of f32 logits."""
+    gold = torch.gather(lg, -1, tgt[..., None].long())[..., 0]
+    return torch.logsumexp(lg, dim=-1) - gold
+
+
+def lm_loss(model: Transformer, tokens,
+            cfg: Optional[TransformerConfig] = None) -> Tensor:
+    """Next-token cross-entropy, the mean over B x (S - 1) positions, plus
+    the MoE aux term."""
+    logits, aux = forward_train(model, tokens, cfg)
+    tgt = torch.as_tensor(tokens, device=logits.device)[:, 1:]
+    return torch.mean(_nll(logits[:, :-1], tgt)) + aux
+
+
+def lm_loss_chunked(model: Transformer, tokens,
+                    cfg: Optional[TransformerConfig] = None,
+                    chunk: int = 512) -> Tensor:
+    """``lm_loss`` without the (B, S, V) logits: the unembedding and the
+    cross-entropy run over ``chunk`` positions at a time, each chunk under
+    ``torch.utils.checkpoint`` (its logits recomputed in the backward).
+    As the reference: the targets shifted by one and zero-padded, the
+    sequence padded to whole chunks, the last position and the padding
+    masked, the chunk sums added in order, and the total divided by
+    B x (S - 1)."""
+    x, aux = hidden_states(model, tokens, cfg)
+    b, s, _ = x.shape
+    tokens = torch.as_tensor(tokens, device=x.device).long()
+    n_chunks = -(-s // chunk)
+    s_pad = n_chunks * chunk
+    x = F.pad(x, (0, 0, 0, s_pad - s))
+    tgt = F.pad(tokens[:, 1:], (0, s_pad - s + 1))
+    mask = torch.arange(s_pad, device=x.device) < (s - 1)
+    remat = torch.is_grad_enabled()
+
+    def one(xc, tc, mc):
+        lg = (xc @ model.lm_head.to(xc.dtype)).float()
+        return torch.sum(_nll(lg, tc) * mc[None, :])
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for ci in range(n_chunks):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        args = (x[:, sl], tgt[:, sl], mask[sl])
+        total = total + (checkpoint(one, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+                         if remat else one(*args))
+    return total / (b * (s - 1)) + aux
 
 
 def param_count(cfg: TransformerConfig) -> int:

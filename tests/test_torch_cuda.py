@@ -5,7 +5,9 @@ tests hold the q8 kernel against its plain version and check that the
 int8 executor and a maintenance pass on a CUDA index launch their
 kernels; the flash-attention tests at the end hold that kernel against
 its plain version and check that ``Transformer.prefill`` on the card
-launches it once per layer.  The file
+launches it once per layer; the training tests hold one train step of
+each smoke config against the CPU's, an asynchronous checkpoint of card
+tensors, and the compressed step on a one-rank NCCL group.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine
 that has only PyTorch: from the repository root,
 
@@ -1296,3 +1298,157 @@ def test_gat_forward_on_the_card_matches_the_cpu(dev, shape):
     got = run(card, dev)
     assert torch.equal(got, run(card, dev))
     assert torch.allclose(got.cpu(), want, rtol=GNN_TOL, atol=GNN_TOL)
+
+
+# ---------------------------------------------------------------------------
+# training (train/, the models' losses) on the card against the CPU
+# ---------------------------------------------------------------------------
+
+TRAIN_TOL, TRAIN_SMALL, TRAIN_NOISE = 1e-5, 1e-3, 1e-6
+TRAIN_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10)
+
+
+def _train_case(name, dev):
+    """(CPU model, card model with its weights, loss, batch) of one smoke
+    config."""
+    import dataclasses
+    from repro_torch.configs import gnn_archs, lm_archs, recsys_archs
+    from repro_torch.data import RecsysPipeline, TokenPipeline, graphs
+    from repro_torch.models import recsys as rs
+    from repro_torch.models import gnn, transformer as tr
+    if name in rs.MODELS:
+        cfg = recsys_archs.ARCHS[name][1]()
+        make = lambda d, g: rs.MODELS[name][1](  # noqa: E731
+            cfg, device=d, generator=g, init=g is not None)
+        loss = rs.recsys_loss
+        batch = RecsysPipeline(batch=32, vocab=1000,
+                               hist_len=rs.history_len(cfg),
+                               seed=1).batch_at(0)
+    elif name == "gat":
+        sh = gnn_archs.GNN_SMOKE_SHAPES["full_graph_sm"]
+        cfg = dataclasses.replace(gnn_archs.gat_cora_smoke(),
+                                  d_in=sh["d_feat"])
+        make = lambda d, g: gnn.GAT(  # noqa: E731
+            cfg, device=d, generator=g, init=g is not None)
+        src, dst = graphs.to_edges(graphs.power_law_graph(
+            sh["n_nodes"], sh["n_edges"] / sh["n_nodes"] / 2, seed=1))
+        rng = np.random.default_rng(2)
+        batch = {"feats": rng.normal(size=(sh["n_nodes"], sh["d_feat"])
+                                     ).astype(np.float32),
+                 "src": src, "dst": dst,
+                 "labels": rng.integers(0, 7, sh["n_nodes"])}
+
+        def loss(m, b):
+            return gnn.loss_fn(m, b["feats"], b["src"], b["dst"],
+                               b["labels"])
+    else:
+        cfg = dataclasses.replace(getattr(lm_archs, name)(), q_block=16,
+                                  k_block=32, attn_grouped=True)
+        make = lambda d, g: tr.Transformer(  # noqa: E731
+            cfg, device=d, generator=g, init=g is not None)
+        batch = TokenPipeline(cfg.vocab_size, 2, 64).batch_at(0)
+
+        def loss(m, b):
+            return tr.lm_loss(m, b["tokens"])
+    cpu = make("cpu", torch.Generator().manual_seed(0))
+    card = make(dev, None)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card, loss, batch
+
+
+def _hold_params_near(card, cpu, grads, lr):
+    """Parameters within TRAIN_TOL * |x| + TRAIN_TOL, but entries whose CPU
+    gradient is under TRAIN_SMALL of its leaf's largest, or under
+    TRAIN_NOISE of the largest of all (its f32 rounding level: a leaf that
+    cancels to zero holds noise alone): Adam's first update there is lr *
+    sign(g) of a rounding-level g, held to 2 * lr."""
+    want = dict(cpu.named_parameters())
+    top = max(float(g.abs().max()) for g in grads.values())
+    for n, p in card.named_parameters():
+        w, x = want[n].detach().double(), p.detach().cpu().double()
+        g = grads[n].abs()
+        noise = (g < TRAIN_SMALL * g.max()) | (g < TRAIN_NOISE * top)
+        tol = torch.where(noise, 2.0 * lr, TRAIN_TOL * w.abs() + TRAIN_TOL)
+        assert bool(((x - w).abs() <= tol).all()), n
+
+
+@pytest.mark.parametrize("name", ["qwen25_smoke", "granite_smoke",
+                                  "qwen3_moe_smoke", "din", "sasrec",
+                                  "two-tower-retrieval", "dlrm-rm2", "gat"])
+def test_train_step_on_the_card_matches_the_cpu(dev, name):
+    """One ``make_train_step`` step of a smoke config, f32 with TF32 off:
+    loss and grad norm within 1e-5 * |x| + 1e-5 of the CPU's step on the
+    same weights, and the parameters after it (``_hold_params_near``)."""
+    from repro_torch.train import optimizer as opt, steps
+    cpu, card, loss, batch = _train_case(name, dev)
+    _, g = steps.value_and_grad(loss, cpu, steps.to_device(batch, "cpu"))
+    step = steps.make_train_step(loss, opt.AdamWConfig(**TRAIN_OPT))
+    _, _, mc = step(cpu, opt.init_state(cpu), batch)
+    _, st, mg = step(card, opt.init_state(card), batch)
+    assert st.step.device.type == "cuda"
+    for k in ("loss", "grad_norm"):
+        assert abs(float(mg[k]) - float(mc[k])) <= \
+            TRAIN_TOL * abs(float(mc[k])) + TRAIN_TOL, k
+    _hold_params_near(card, cpu, g, float(mc["lr"]))
+
+
+def test_async_checkpoint_of_card_tensors_keeps_save_time_values(
+        dev, tmp_path):
+    """A save of CUDA tensors, then an in-place update before the writer
+    thread has finished: the checkpoint holds the values at save time, and
+    restores onto the card (the default device)."""
+    from repro_torch.train import CheckpointManager
+    from repro_torch.train import optimizer as opt
+    w = torch.randn(4_000_000, device=dev)
+    st = opt.init_state({"w": w})
+    want = w.cpu().clone()
+    mgr = CheckpointManager(str(tmp_path), async_write=True)
+    mgr.save(1, ({"w": w}, st))
+    w.mul_(-3.0)
+    st.m["w"].fill_(1.0)
+    mgr.wait()
+    got, man = mgr.restore(({"w": w}, st))
+    assert man["step"] == 1 and got[0]["w"].device.type == "cuda"
+    assert torch.equal(got[0]["w"].cpu(), want)
+    assert not got[1].m["w"].any()
+    mgr.restore_into(({"w": w}, st))
+    assert torch.equal(w.cpu(), want)
+
+
+def test_compressed_step_on_one_nccl_rank_matches_one_gloo_rank(
+        dev, tmp_path):
+    """``make_compressed_dp_step`` (qwen25_smoke) on a one-rank NCCL
+    group, every collective a real NCCL call, against the same step in a
+    one-rank gloo group on the CPU: loss within 1e-5 * |x| + 1e-5, the
+    parameters as ``_hold_params_near``, whose marked entries also take
+    the codes that sit within 1e-3 of a rounding tie."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import optimizer as opt, steps
+    cpu0, _, loss, batch = _train_case("qwen25_smoke", dev)
+
+    def run(device, backend, tag):
+        dist.init_process_group(backend,
+                                init_method=f"file://{tmp_path}/{tag}",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_host_mesh(device=device)
+            model = type(cpu0)(cpu0.cfg, device=mesh.device, init=False)
+            model.load_state_dict(cpu0.state_dict())
+            st, res = opt.init_state(model), opt.init_residual(model)
+            step = steps.make_compressed_dp_step(
+                loss, opt.AdamWConfig(**TRAIN_OPT), mesh, ("data",))
+            return model, step(model, st, res, batch)[3]
+        finally:
+            dist.destroy_process_group()
+
+    cpu, mc = run("cpu", "gloo", "gloo")
+    card, mg = run("cuda", "nccl", "nccl")
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= \
+        TRAIN_TOL * abs(float(mc["loss"])) + TRAIN_TOL
+    _, g = steps.value_and_grad(loss, cpu0, batch)
+    for n, t in g.items():
+        q = (t / (t.abs().max() / 127.0)).abs()
+        tie = ((q - q.floor()) - 0.5).abs() < 1e-3
+        g[n] = torch.where(tie, 0.0, t)     # marked as near zero
+    _hold_params_near(card, cpu, g, float(mc["lr"]))
