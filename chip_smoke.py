@@ -5,9 +5,9 @@
                           [--wiki-n 1000000] [--months 12]
                           [--serve-months 12]
 
-With no arguments it runs ten paths, each with the kernels' launch
+With no arguments it runs eleven paths, each with the kernels' launch
 counts set to 0 just before it and read just after (path 6 runs after
-the kernel checks and before path 3, paths 7-10 last, in that order):
+the kernel checks and before path 3, paths 7-11 last, in that order):
 
 1. The main path, the SIFT1M-shaped cell: 1,000,000 clustered synthetic
    vectors of d=128 (L2; a mixture of 8192 Gaussian clusters with sizes
@@ -167,6 +167,21 @@ the kernel checks and before path 3, paths 7-10 last, in that order):
    and ``molecule``: finite losses, every parameter changed, step ms and
    peak memory; (e) ``make_compressed_dp_step`` on a one-rank NCCL group
    against the same step in a one-rank gloo group on the CPU.
+11. The registry's cells (``configs``): ``launch/dryrun.py --all`` in a
+   subprocess (every (arch x shape) cell counted for rank 0 of the 16 x
+   16 and 2 x 16 x 16 meshes on ``meta``; gated: all 88 counted; the
+   cells that do not fit 80 GB and each cell's dominant roofline term
+   printed) while rank 0 of the 16 x 16 mesh runs ``CELL_RUNS`` on the
+   card (an abstract mesh: its collectives are copies of the rank's own
+   piece): quake-ann's four cells at ``scan_impl="union_cuda"``,
+   qwen2.5-14b's four shapes and qwen3-moe's ``train_4k`` at 4 layers,
+   the GAT at ``ogb_products``, DLRM's ``train_batch`` and the
+   two-tower's ``retrieval_cand``, each at full width from seeded random
+   arguments, one warm and one timed call.  It prints the count's bytes a
+   device beside the card's memory growth (gated within max(10%, 0.5
+   GB)), ms a step and the counted FLOPs' TFLOP/s; gates finite outputs
+   and holds each kernel a cell launched against its plain version on
+   the rank's own operands.
 
 It then holds each CUDA kernel against its plain PyTorch version at the
 shapes the paths gave it, times both and a one-library-call yardstick,
@@ -199,8 +214,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out" / "chip_smoke"
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
-F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 # kernel vs plain: |diff| <= TOL_REL * |d| + TOL_ABS per entry, the f32
 # rounding of the same dot products summed in another order.  The kernels'
 # distances leave ||q||^2 out, so |d| is about ||x||^2 (~5e3 here) and the
@@ -209,8 +222,6 @@ TOL_REL, TOL_ABS = 1e-5, 1e-2
 BF16_RECALL = 0.8             # bf16 vs f32 id overlap (the JAX tests' bar)
 APS_RECALL_MIN = 0.85         # recall@100 of the APS path at target 0.9
 INT8_OVERLAP = 0.85           # int8 vs f32 id overlap (the JAX tests' bar)
-INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 (the bound of the q8 scan)
-BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 (the bound of attention)
 # flash kernel vs its plain version, per entry: f32 within
 # FLASH_F32_TOL * |o| + FLASH_F32_TOL (tests/test_kernels.py's bound for
 # the TPU kernel); bf16 within one bf16 ulp of the output, 2^-7 * |o|, plus
@@ -317,6 +328,26 @@ TRAIN_INBATCH_B = 16_384
 TRAIN_RECSYS_ROWS = {"two-tower-retrieval": 2_500_000, "dlrm-rm2": 1_250_000}
 TRAIN_GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "molecule")
 TRAIN_CODE_TIE = 1e-3
+# the registry's cells (path 11): the dry-run of every (arch x shape) cell
+# on both production meshes in a subprocess (DRYRUN_JOBS processes, within
+# DRYRUN_TIMEOUT s), then rank 0 of the 16 x 16 mesh on the card for
+# CELL_RUNS, LM cells cut to CELL_LAYERS layers (the count made at the same
+# depth), the engine at CELL_ENGINE; the card's memory growth within
+# max(CELL_MEM_REL of the count, CELL_MEM_ABS bytes) of the count; the
+# brute-force scan held on the first CELL_PLAIN_Q queries' operands
+CELL_RUNS = (("quake-ann", "serve_fixed_1k"),
+             ("quake-ann", "serve_adaptive_1k"),
+             ("quake-ann", "bulk_brute_8k"), ("quake-ann", "maint_assign_1m"),
+             ("qwen2.5-14b", "train_4k"), ("qwen2.5-14b", "prefill_32k"),
+             ("qwen2.5-14b", "decode_32k"), ("qwen2.5-14b", "long_500k"),
+             ("qwen3-moe-235b-a22b", "train_4k"), ("gat-cora", "ogb_products"),
+             ("dlrm-rm2", "train_batch"),
+             ("two-tower-retrieval", "retrieval_cand"))
+CELL_LAYERS = 4
+CELL_ENGINE = {"scan_impl": "union_cuda"}
+CELL_MEM_REL, CELL_MEM_ABS = 0.10, 0.5e9
+CELL_PLAIN_Q = 16
+DRYRUN_JOBS, DRYRUN_TIMEOUT = 4, 600
 # kernel groups of the (b) step's profile: f32 GEMMs (the attention's
 # scores and PV products of f32 copies: CUDA-core sgemm), the other GEMMs
 # (bf16 on the tensor cores), elementwise and copy kernels, reductions
@@ -578,15 +609,6 @@ def overlap(a, b) -> float:
                           for x, y in zip(a, b)]))
 
 
-def bound(nbytes: float, ops: float, ops_per_s: float):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the peak rate of their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
-
-
 def worklist(sti, qmask, sel_l, nrows) -> dict:
     """The grouped driver's work list at one plan: the grouping kernel
     held against its plain version (exactly), then the (query, union
@@ -648,6 +670,7 @@ def scan_topk_phase(st, ops, idx, q, dev, launches, seed) -> dict:
     _scan_vectors`` call split into its host-to-card copy, the kernel
     and the pull-back.  Returns the ``kernels`` row (the centroid pass's
     numbers, the others under ``shapes``)."""
+    from repro_torch.kernels import build
     import numpy as np
     import torch
     rng = np.random.default_rng(seed + 17)
@@ -695,8 +718,9 @@ def scan_topk_phase(st, ops, idx, q, dev, launches, seed) -> dict:
         def library(qq=qq, xx=xx, x2=x2, kp=min(kp, nx)):
             return torch.topk(x2 - 2.0 * torch.matmul(qq, xx.T), kp, dim=1,
                               largest=False)
-        bound_ms, bound_by = bound((nq + nx) * d * 4 + 2 * nq * kp * 4,
-                                   2.0 * nq * nx * d, F32_FLOPS_PER_S)
+        bound_ms, bound_by = build.bound(
+            (nq + nx) * d * 4 + 2 * nq * kp * 4, 2.0 * nq * nx * d,
+            build.F32_FLOPS_PER_S)
         ms, lib_ms = median_ms(kern, library)
         row = {"Q": nq, "N": nx, "d": d, "k_pad": kp,
                "design": st.design(nq), "launches_per_call": per_call,
@@ -1081,9 +1105,10 @@ def main() -> int:
             lib_ms = timed(lambda: library_indexed(
                 q_dev, data_t.index_select(0, sel_l).float(), valid, sel_l,
                 qmask, metric, k_pad))[1]
-            bound_ms, bound_by = bound(
+            bound_ms, bound_by = build.bound(
                 rows_read * d * elem + b * d * elem + 2 * b * k_pad * 4
-                + b * u + rows_read, 2.0 * active_rows * d, F32_FLOPS_PER_S)
+                + b * u + rows_read, 2.0 * active_rows * d,
+                build.F32_FLOPS_PER_S)
             kernels.append({
                 "name": ("scan_topk_indexed" if (dtype_name, metric)
                          == ("f32", "l2") else
@@ -1170,9 +1195,9 @@ def main() -> int:
         ms32, dev_ms32 = cuda_ms(kern32), device_ms(kern32)
         lib_ms = timed(lambda: library_indexed(
             q_dev, dequantized(), ex8._valid, sel_l, qmask, metric, kp8))[1]
-        bound_ms, bound_by = bound(
+        bound_ms, bound_by = build.bound(
             rows8 * (d + 4 + 4 + 1) + b * (d + 4) + b * u * (4 + 1)
-            + 2 * b * kp8 * 4, 2.0 * active8 * d, INT8_OPS_PER_S)
+            + 2 * b * kp8 * 4, 2.0 * active8 * d, build.INT8_OPS_PER_S)
         kernels.append({
             "name": ("scan_topk_indexed_q8" if metric == "l2"
                      else "scan_topk_indexed_q8[ip]"),
@@ -1239,8 +1264,9 @@ def main() -> int:
         return torch.argmin(torch.cdist(xs, cents), dim=1)
     lib_ms, lib_dev_ms = cuda_ms(library), device_ms(library)
     n_x = xs.shape[0]
-    bound_ms, bound_by = bound((n_x + nc) * d * 4 + n_x * 8,
-                               2.0 * n_x * nc * d, F32_FLOPS_PER_S)
+    bound_ms, bound_by = build.bound((n_x + nc) * d * 4 + n_x * 8,
+                                     2.0 * n_x * nc * d,
+                                     build.F32_FLOPS_PER_S)
     kernels.append({
         "name": "kmeans_assign", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
@@ -1363,6 +1389,13 @@ def main() -> int:
     print(f"train path took {record['train']['path_s']:.1f} s")
     for row in kernels:      # each kernel's launches on the training path
         row["train_launches"] = record["train"]["launches"][
+            row["name"].split("[")[0]]
+
+    # ---- path 11: the registry's cells (dry-run; rank 0 on the card) -------
+    record["cells"] = run_cells(args, dev, start_path, end_path, counters)
+    print(f"cells path took {record['cells']['path_s']:.1f} s")
+    for row in kernels:      # each kernel's launches on the cells path
+        row["cells_launches"] = record["cells"]["launches"][
             row["name"].split("[")[0]]
     checks = record["engine"]["engine_check"]
     for row in kernels:      # each kernel's launches on the engine path
@@ -1577,6 +1610,7 @@ def brute_force_shape(st, snap, q_dev):
     library's ``torch.matmul`` + ``torch.topk`` over 1M-row chunks,
     merged (||x||^2 and the mask bias outside the timing).  The bound
     counts the live rows only: those the function needs."""
+    from repro_torch.kernels import build
     import torch
     from repro_torch.kernels.ref import MASK_DIST
     b, d = q_dev.shape
@@ -1614,8 +1648,9 @@ def brute_force_shape(st, snap, q_dev):
         return v, torch.gather(torch.cat(pos, 1), 1, i)
     ms = cuda_ms(kern, reps=3, warmup=1)
     lib_ms = cuda_ms(library, reps=3, warmup=1)
-    bound_ms, bound_by = bound((b + n_live) * d * 4 + n + 2 * b * kp * 4,
-                               2.0 * b * n_live * d, F32_FLOPS_PER_S)
+    bound_ms, bound_by = build.bound(
+        (b + n_live) * d * 4 + n + 2 * b * kp * 4, 2.0 * b * n_live * d,
+        build.F32_FLOPS_PER_S)
     row = {"Q": b, "N": n, "N_live": n_live, "d": d, "k_pad": kp,
            "design": st.design(b), "max_abs_err": err, "tol": tol,
            "ms": ms, "device_ms": device_ms(kern, reps=3),
@@ -2739,21 +2774,6 @@ def check_close(name, got, ref, rel, abs_):
     return err
 
 
-def flash_bound(b, sq, sk, h, kh, d, causal, elem):
-    """(bound_ms, bound_by) of one attention call: q, k, v read and the
-    output written once; 4 d operations per live (query, key) pair and
-    head, at the bf16 tensor-core rate (elem 2) or the f32 rate of the
-    CUDA cores (elem 4: the f32 kernel's contract rules out TF32)."""
-    if causal:   # query i sees keys 0..min(i, sk - 1)
-        m = min(sq, sk)
-        pairs = m * (m + 1) // 2 + (sq - m) * sk
-    else:
-        pairs = sq * sk
-    nbytes = (2 * b * sq * h * d + 2 * b * sk * kh * d) * elem
-    return bound(nbytes, 4.0 * b * h * d * pairs,
-                 BF16_FLOPS_PER_S if elem == 2 else F32_FLOPS_PER_S)
-
-
 def run_lm(args, dev, start_path, end_path):
     """The LM serving path: exact f32 checks at full width and two layers
     (kernel against plain attention, decode against re-prefill), then the
@@ -2941,7 +2961,7 @@ def run_lm(args, dev, start_path, end_path):
     views = [x.transpose(1, 2) for x in (q, k, v)]
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         *views, is_causal=True, enable_gqa=True), reps=5, warmup=1)
-    bound_ms, bound_by = flash_bound(b, s, s, h, kh, dh, True, 2)
+    bound_ms, bound_by = fa.flash_bound(b, s, s, h, kh, dh, True, 2)
     gs = torch.Generator(device=dev).manual_seed(args.seed + 2)
     fq, fk = fa.TILES[torch.float32]
     for (bb, hh, kk, sq, sk, d, causal) in [
@@ -2962,7 +2982,7 @@ def run_lm(args, dev, start_path, end_path):
                      for n in (h, kh, kh))
     f32_ms = cuda_ms(lambda: fa.flash_attention_cuda(q32, k32, v32,
                                                      causal=True))
-    f32_bound, f32_by = flash_bound(2, 512, 512, h, kh, dh, True, 4)
+    f32_bound, f32_by = fa.flash_bound(2, 512, 512, h, kh, dh, True, 4)
     views32 = [x.transpose(1, 2) for x in (q32, k32, v32)]
     f32_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         *views32, is_causal=True, enable_gqa=True))
@@ -2991,7 +3011,7 @@ def run_lm(args, dev, start_path, end_path):
     views = [x.transpose(1, 2) for x in (q, k, v)]
     long_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         *views, is_causal=True, enable_gqa=True), reps=3, warmup=1)
-    long_bound, long_by = flash_bound(1, n, n, h, kh, dh, True, 2)
+    long_bound, long_by = fa.flash_bound(1, n, n, h, kh, dh, True, 2)
     long = {"shape": {"B": 1, "S": n, "H": h, "KH": kh, "D": dh},
             "ms": long_ms, "plain_ms": long_plain_ms,
             "library_ms": long_lib_ms, "bound_ms": long_bound,
@@ -3382,13 +3402,10 @@ def indexed_work(a, kp, q8):
     sel_l = sel.long()
     active = int((qmask.sum(dim=0).long() * nrows[sel_l].long()).sum())
     rows = int(nrows[torch.unique(sel_l)].sum())
-    if q8:
-        nbytes = (rows * (d + 4 + 4 + 1) + b * (d + 4) + b * u * (4 + 1)
-                  + 2 * b * kp * 4)
-    else:
-        nbytes = (rows * d * data.element_size() + b * d * 4
-                  + 2 * b * kp * 4 + b * u + rows)
-    return nbytes, 2.0 * active * d, active, rows
+    elem = 1 if q8 else data.element_size()
+    ops_, nbytes = sti.work(b, u, 0, d, kp, elem, q8=q8, rows=rows,
+                            active=active)
+    return nbytes, ops_, active, rows
 
 
 def recsys_kernel_checks(cap, dev) -> dict:
@@ -3404,6 +3421,7 @@ def recsys_kernel_checks(cap, dev) -> dict:
     is timed at its largest held APS call (the indexed scan also at the
     exhaustive call) beside its plain version, the library's version
     where there is one, and its bound."""
+    from repro_torch.kernels import build
     import torch
     from repro_torch.kernels import kmeans_assign as ka
     from repro_torch.kernels import scan_topk as st
@@ -3434,8 +3452,8 @@ def recsys_kernel_checks(cap, dev) -> dict:
     plain_ms = cuda_ms(lambda: ka.kmeans_assign_plain(xs, c, aux))
     lib_ms = cuda_ms(lambda: torch.argmin(torch.cdist(xs, c), dim=1))
     n_x, nc, d = xs.shape[0], c.shape[0], xs.shape[1]
-    b_ms, b_by = bound((n_x + nc) * d * 4 + n_x * 8, 2.0 * n_x * nc * d,
-                       F32_FLOPS_PER_S)
+    b_ms, b_by = build.bound((n_x + nc) * d * 4 + n_x * 8,
+                             2.0 * n_x * nc * d, build.F32_FLOPS_PER_S)
     checks["kmeans_assign"] = {
         "max_abs_err": max(err, err_b), "tol": tol_a, "ms": ms,
         "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
@@ -3471,13 +3489,14 @@ def recsys_kernel_checks(cap, dev) -> dict:
     lib_ms = cuda_ms(lambda: torch.topk(uq @ items.T, kp, dim=1), reps=3,
                      warmup=1)
     nq, n, d = uq.shape[0], items.shape[0], items.shape[1]
-    b_ms, b_by = bound((nq + n) * d * 4 + 2 * nq * kp * 4, 2.0 * nq * n * d,
-                       F32_FLOPS_PER_S)
+    b_ms, b_by = build.bound((nq + n) * d * 4 + 2 * nq * kp * 4,
+                             2.0 * nq * n * d, build.F32_FLOPS_PER_S)
     c_ms = cuda_ms(lambda: st.scan_topk_cuda(q, x, v, **kw))
     c_lib = cuda_ms(lambda: torch.topk(q @ x.T, min(kw["k_pad"],
                                                     x.shape[0]), dim=1))
-    cb_ms, cb_by = bound((q.shape[0] + x.shape[0]) * d * 4, 2.0 * q.shape[0]
-                         * x.shape[0] * d, F32_FLOPS_PER_S)
+    cb_ms, cb_by = build.bound((q.shape[0] + x.shape[0]) * d * 4,
+                               2.0 * q.shape[0] * x.shape[0] * d,
+                               build.F32_FLOPS_PER_S)
     checks["scan_topk"] = {
         "max_abs_err": max(err_c, err_b), "tol": tol_c, "ms": ms,
         "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
@@ -3503,8 +3522,9 @@ def recsys_kernel_checks(cap, dev) -> dict:
         if not q8:          # the exhaustive call: every partition
             a, kw, _ = calls[0]
             nbytes, ops_, _, _ = indexed_work(a, kw["k_pad"], False)
-            held["exhaustive"] = dict(zip(("bound_ms", "bound_by"), bound(
-                nbytes, ops_, F32_FLOPS_PER_S)), ms=cuda_ms(
+            held["exhaustive"] = dict(zip(
+                ("bound_ms", "bound_by"),
+                build.bound(nbytes, ops_, build.F32_FLOPS_PER_S)), ms=cuda_ms(
                     lambda: kern(*a, **kw), reps=3, warmup=1),
                 U=int(a[-1].shape[1]))
             calls = calls[1:]
@@ -3512,8 +3532,8 @@ def recsys_kernel_checks(cap, dev) -> dict:
         ms = cuda_ms(lambda: kern(*a, **kw))
         _, plain_ms = timed(lambda: plain(*a, **kw))
         nbytes, ops_, active, rows_read = indexed_work(a, kw["k_pad"], q8)
-        b_ms, b_by = bound(nbytes, ops_, INT8_OPS_PER_S if q8
-                           else F32_FLOPS_PER_S)
+        b_ms, b_by = build.bound(nbytes, ops_, build.INT8_OPS_PER_S if q8
+                                 else build.F32_FLOPS_PER_S)
         if q8:
             lib_ms = timed(lambda: library_indexed_q8(*a, **kw))[1]
         else:
@@ -3838,7 +3858,7 @@ def run_moe_model(name, smoke, args, dev, start_path, end_path) -> dict:
     views = [x.transpose(1, 2) for x in (q, k, v)]
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         *views, is_causal=True, enable_gqa=True), reps=5, warmup=1)
-    bound_ms, bound_by = flash_bound(b, s, s, h, kh, dh, True, 2)
+    bound_ms, bound_by = fa.flash_bound(b, s, s, h, kh, dh, True, 2)
     out["flash"] = {"shape": {"B": b, "S": s, "H": h, "KH": kh, "D": dh},
                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
@@ -4658,6 +4678,215 @@ def run_train(args, dev, start_path, end_path, counters) -> dict:
     print(f"train path: (a) {out['a_s']:.1f} s, (b) {out['b_s']:.1f} s, "
           f"(c) {out['c_s']:.1f} s, (d) {out['d_s']:.1f} s, (e) "
           f"{out['e_s']:.1f} s")
+    return out
+
+
+def cell_build(name, shape, mesh):
+    """The registry's cell as path 11 runs it: LM cells at CELL_LAYERS
+    layers, the engine at CELL_ENGINE."""
+    from repro_torch import configs
+    spec = configs.get_arch(name)
+    kw = ({"engine_overrides": CELL_ENGINE} if name == "quake-ann"
+          else {"layers": CELL_LAYERS} if spec.family == "lm" else {})
+    return spec.build(shape, mesh, **kw)
+
+
+def capture_kernels(mods):
+    """Patch each (module, wrapper name) of ``mods`` to keep the operands
+    and output of its first call; returns (captured, restore)."""
+    captured = {}
+    saved = []
+    for mod, attr in mods:
+        real = getattr(mod, attr)
+
+        def wrap(*a, _real=real, _key=attr, **kw):
+            out = _real(*a, **kw)
+            captured.setdefault(_key, (a, kw, out))
+            return out
+        saved.append((mod, attr, real))
+        setattr(mod, attr, wrap)
+
+    def restore():
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+    return captured, restore
+
+
+def hold_cell_kernels(name, captured) -> dict:
+    """Each kernel a cell launched, held against its plain version on the
+    operands of its first call there."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import scan_topk as st
+    from repro_torch.kernels import scan_topk_indexed as sti
+    held = {}
+    for key, (a, kw, out) in captured.items():
+        label = f"{name} {key.replace('_cuda', '')}"
+        if key == "scan_topk_indexed_cuda":
+            held[key] = compare_topk(label, *out,
+                                     *sti.scan_topk_indexed_plain(*a, **kw))
+        elif key == "scan_topk_cuda":
+            q, xs = a[0][:CELL_PLAIN_Q], a[1]
+            rest = a[2:]
+            d_p, i_p = st.scan_topk_plain(q, xs, *rest, **kw)
+            held[key] = compare_topk(label, out[0][:CELL_PLAIN_Q],
+                                     out[1][:CELL_PLAIN_Q], d_p, i_p)
+        elif key == "kmeans_assign_cuda":
+            held[key] = hold_assign(ka, label, *a)[:2]
+        elif key == "flash_attention_cuda":
+            # within one bf16 ulp of each (query, head) row's largest
+            # output: both round p to bf16 before the PV product, and a
+            # score that differs in its last f32 bit rounds one p the
+            # other way, moving the whole row by that p's share of its
+            # values (at 32k keys it exceeds one ulp of a small entry)
+            bq, bk = fa.TILES[a[0].dtype]
+            o_p = fa.flash_attention_plain(*a, q_block=bq, k_block=bk, **kw)
+            o_k, o_p = out.double(), o_p.double()
+            tol = FLASH_BF16_REL * o_p.abs().amax(-1, keepdim=True) \
+                + FLASH_BF16_ABS
+            diff = (o_k - o_p).abs()
+            if not bool(torch.isfinite(o_k).all()) or bool((diff > tol)
+                                                           .any()):
+                fail(f"{label}: {int((diff > tol).sum())} entries beyond "
+                     f"2^-7 * max|row| + {FLASH_BF16_ABS:g}")
+            held[key] = (float(diff.max()), float(tol.max()))
+            print(f"{label}: max |diff| {held[key][0]:.3g} (bound 2^-7 * "
+                  f"max|row| + {FLASH_BF16_ABS:g})")
+        torch.cuda.synchronize()
+    return held
+
+
+def run_cells(args, dev, start_path, end_path, counters) -> dict:
+    """Path 11: the registry's cells.  The dry-run of every (arch x shape)
+    cell on both production meshes runs in a subprocess while rank 0 of
+    the 16 x 16 mesh runs CELL_RUNS on the card: each cell counted on meta
+    at the depth it runs, its arguments drawn from the seed, one warm and
+    one timed call; gates: every dry-run cell counted, memory growth
+    within max(10%, 0.5 GB) of the count, finite outputs, each kernel a
+    cell launched held against its plain version on the rank's own
+    operands, a cell that does not fit not run."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import scan_topk as st
+    from repro_torch.kernels import scan_topk_indexed as sti
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.roofline.analysis import analyze
+    from repro_torch.roofline.count import tensors_of
+    t_path = time.perf_counter()
+    out = {"card": card_line(), "cells": {}}
+    dry_json = OUT_DIR / "dryrun.json"
+    dry_log = open(OUT_DIR / "dryrun.log", "w")
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--jobs", str(DRYRUN_JOBS), "--out", str(dry_json)],
+        stdout=dry_log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+    try:
+        meta_mesh = make_production_mesh(False)
+        card_mesh = make_production_mesh(False, device=dev)
+        mods = ((sti, "scan_topk_indexed_cuda"), (st, "scan_topk_cuda"),
+                (ka, "kmeans_assign_cuda"), (fa, "flash_attention_cuda"))
+        start_path()
+        for name, shape in CELL_RUNS:
+            key = f"{name}/{shape}"
+            t0 = time.perf_counter()
+            cell = cell_build(name, shape, meta_mesh)
+            res = analyze(cell.count(), meta_mesh, arch=name, shape=shape)
+            count_s = time.perf_counter() - t0
+            row = {"count_gb": res["bytes_per_device_gb"],
+                   "count_tf": res["flops_per_device_tf"],
+                   "t_compute_ms": res["t_compute_ms"],
+                   "t_memory_ms": res["t_memory_ms"],
+                   "reduced": cell.reduced, "count_s": count_s,
+                   "description": cell.description}
+            out["cells"][key] = row
+            if not res["fits"]:
+                print(f"cells {key}: the count says it does not fit "
+                      f"({res['bytes_per_device_gb']:.2f} GB): not run")
+                continue
+            run = cell_build(name, shape, card_mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            a = run.materialize(dev, torch.Generator(device=dev).manual_seed(
+                args.seed))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = {n: c.count for n, c in counters.items()}
+            res_out = run.fn(*a)
+            torch.cuda.synchronize()
+            del res_out
+            res_out, ms = timed(lambda: run.fn(*a))
+            grew = torch.cuda.max_memory_allocated() - base
+            row["launches"] = {n: c.count - before[n]
+                               for n, c in counters.items()}
+            for t in tensors_of(res_out):
+                if t.is_floating_point() and not bool(
+                        torch.isfinite(t).all()):
+                    fail(f"cells {key}: non-finite outputs")
+            del res_out
+            count_b = res["bytes_per_device_gb"] * 1e9
+            row.update(card_gb=grew / 1e9, ms=ms,
+                       tflops=res["flops_per_device_tf"] / (ms / 1e3)
+                       if ms else None)
+            print(f"cells {key}: count {row['count_gb']:.3f} GB, card "
+                  f"{row['card_gb']:.3f} GB, {ms:.2f} ms a step, "
+                  f"{row['count_tf']:.4f} TF counted ({row['tflops']:.2f} "
+                  f"TFLOP/s; compute term by dtype "
+                  f"{row['t_compute_ms']:.2f} ms, memory term unfused "
+                  f"{row['t_memory_ms']:.2f} ms), launches "
+                  f"{row['launches']}, counted in {count_s:.1f} s")
+            if abs(grew - count_b) > max(CELL_MEM_REL * count_b,
+                                         CELL_MEM_ABS):
+                fail(f"cells {key}: the card's memory {grew / 1e9:.3f} GB "
+                     f"is not within max(10%, 0.5 GB) of the count "
+                     f"{count_b / 1e9:.3f} GB")
+            # the kernels against their plain versions on this rank's
+            # operands: one more call, captured, outside the measurement
+            if any(row["launches"].values()):
+                captured, restore = capture_kernels(mods)
+                try:
+                    held = uncounted(counters, lambda: run.fn(*a))
+                    del held
+                finally:
+                    restore()
+                row["held"] = uncounted(counters, lambda: hold_cell_kernels(
+                    key, captured))
+                del captured
+            del a, run, cell
+        out["launches"] = end_path("cells", ("scan_topk_indexed",
+                                             "scan_topk", "kmeans_assign",
+                                             "flash_attention"))
+        out["card_s"] = time.perf_counter() - t_path
+        rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT - out["card_s"]))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        dry_log.close()
+    if rc != 0 or not dry_json.exists():
+        fail(f"cells: the dry-run exited {rc} (chiprun_out/chip_smoke/"
+             f"dryrun.log)")
+    dry = json.loads(dry_json.read_text())
+    bad = [k for k, v in dry.items() if "error" in v]
+    if len(dry) != 88 or bad:
+        fail(f"cells: {len(dry)} dry-run cells, failed {bad}")
+    no_fit = [k for k, v in dry.items() if not v["fits"]]
+    print(f"cells: the dry-run counted all {len(dry)} (cell, mesh) pairs; "
+          f"cells that do not fit: {no_fit or 'none'}")
+    for k, v in dry.items():
+        print(f"  dryrun {k}: {v['bytes_per_device_gb']:.2f} GB, "
+              f"{v['flops_per_device_tf']:.3f} TF, {v['collective_gb']:.3f} "
+              f"GB on the wire, dominant {v['dominant']} (compute by "
+              f"dtype {v['t_compute_ms']:.3f} ms, memory unfused "
+              f"{v['t_memory_ms']:.3f} ms)")
+    out["dryrun"] = {"pairs": len(dry), "no_fit": no_fit}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["path_s"] = time.perf_counter() - t_path
     return out
 
 

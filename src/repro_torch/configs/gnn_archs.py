@@ -1,7 +1,8 @@
 """gat-cora [arXiv:1710.10903]: 2 layers, 8 heads of 8, 7 classes, and
 the GNN family's four graph shapes, as plain data (the JAX package's
 ``configs/gnn_archs.py`` and ``GNN_SHAPES`` / ``GNN_SMOKE_SHAPES`` of its
-``configs/families.py``; the lowering, ``build_gnn``, is not ported)."""
+``configs/families.py``); the registry builds its cells through
+``families.build_gnn``."""
 from __future__ import annotations
 
 from ..models.gnn import GATConfig

@@ -1,7 +1,7 @@
 """The five LM architectures of the JAX package's ``configs/lm_archs.py``
 (the published configs) and their reduced smoke configs, as plain data.
-The reference's ``ArchSpec`` registry and ``build_lm`` lowerings are JAX
-compile machinery and are not ported."""
+The registry (``configs/__init__.py``) names them and builds their cells
+through ``families.build_lm``."""
 from __future__ import annotations
 
 import torch

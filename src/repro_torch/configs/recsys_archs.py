@@ -1,8 +1,8 @@
 """The four recsys architectures of the JAX package's
 ``configs/recsys_archs.py`` (the published configs) and their smoke
 configs, with the family's serving shapes (``configs/families.py``), as
-plain data.  The reference's ``ArchSpec`` registry and ``build_recsys``
-lowerings are JAX compile machinery and are not ported."""
+plain data.  The registry (``configs/__init__.py``) names them and
+builds their cells through ``families.build_recsys``."""
 from __future__ import annotations
 
 from ..models.recsys import (DINConfig, DLRMConfig, SASRecConfig,

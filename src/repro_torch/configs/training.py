@@ -3,7 +3,8 @@ plain data: the optimizer (``OPT_CFG``), the LM ``train_4k`` shape (full
 and smoke) with ``build_lm``'s step settings, and the one-device form of
 ``_adapt_lm_cfg``.  The recsys ``train_batch`` shape is in
 ``recsys_archs.RECSYS_SHAPES`` and the GNN's shapes in
-``gnn_archs.GNN_SHAPES``; the lowerings themselves are not ported."""
+``gnn_archs.GNN_SHAPES``; the registry's cells are built by
+``families``."""
 from __future__ import annotations
 
 import dataclasses

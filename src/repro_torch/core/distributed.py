@@ -141,6 +141,31 @@ class ShardedQuakeEngine:
         self.full_rebuilds = 0
         self.delta_refreshes = 0
 
+    # ---- sharding specs ----
+    def snapshot_spec(self) -> IndexSnapshot:
+        """The snapshot's layout: partitions split over the partition
+        axes, the beta table replicated."""
+        from ..launch.mesh import P
+        pa = P(self.cfg.part_axes)
+        return IndexSnapshot(
+            data=pa, ids=pa, centroids=pa, sizes=pa, beta_table=P(),
+            scales=pa if self.cfg.storage_dtype == "int8" else None)
+
+    def query_spec(self):
+        """The queries' layout: rows over the batch axis, if any."""
+        from ..launch.mesh import P
+        return P(self.batch_axis) if self.batch_axis else P()
+
+    def mapped_fn(self, kind: str):
+        """The per-rank search of ``kind`` ("fixed", "adaptive" or
+        "brute"): ``fn(q, snap)`` of this rank's queries (its rows of the
+        batch axis) and its block of the snapshot, returning the rank's
+        rows of the results (the JAX engine's ``shard_map``'d callable,
+        before the public entry points gather the batch)."""
+        return {"fixed": self._search_fixed_local,
+                "adaptive": self._search_adaptive_local,
+                "brute": self._search_brute_local}[kind]
+
     # ---- snapshots ----
     def _block(self, p_pad: int) -> Tuple[int, int]:
         if p_pad % self.n_part_shards:
@@ -425,12 +450,16 @@ class ShardedQuakeEngine:
         ti = torch.full((b, cfg.k), -1, dtype=torch.int32, device=q.device)
         # round 1 always scans (it initializes rho)
         scanned, td, ti, r = body(scanned, td, ti)
+        meta = q.device.type == "meta"
+        if meta:
+            mesh.notes.append(f"adaptive: {cfg.max_rounds} rounds, the "
+                              f"static bound (no data on meta)")
         for _ in range(1, cfg.max_rounds):
             unscanned = mesh.psum(torch.sum(~scanned, dim=1), axes)
             active = (r < cfg.recall_target) & (unscanned > 0)
             # the one host read of a round: every rank of this partition
             # group holds the same all-reduced values, so all agree
-            if not bool(torch.any(active)):
+            if not meta and not bool(torch.any(active)):
                 break
             scanned, td, ti, r = body(scanned, td, ti)
         dg, ig = self._merge_global(td, ti, cfg.k)

@@ -15,6 +15,7 @@ fallback: a failed build raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -200,3 +201,73 @@ class LaunchCounter:
 
     def reset(self) -> None:
         self.count = 0
+
+
+# ---------------------------------------------------------------------------
+# The card's rates, and the work of a kernel call that runs on meta tensors
+# ---------------------------------------------------------------------------
+
+# H100 SXM5 80GB at 700 W, from NVIDIA's datasheet: device memory rate,
+# f32 outside the tensor cores, dense bf16 and dense int8 on them
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
+# the card's streaming multiprocessors: what the launch plans size their
+# grids by when a call runs on meta tensors
+H100_SMS = 132
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+class WorkTally:
+    """The work of the kernel calls made on ``meta`` tensors, by kernel:
+    calls, operations and bytes from each kernel module's own formula, and
+    ``ops_s``, the operations over the peak rate of their type (seconds).
+    A wrapper called on meta tensors makes the card call's allocations,
+    launches nothing and adds here instead (the dry-run's count)."""
+
+    def __init__(self):
+        self.by_kernel: Dict[str, Dict[str, float]] = {}
+
+    def add(self, name: str, ops: float, nbytes: float,
+            ops_per_s: float) -> None:
+        w = self.by_kernel.setdefault(name, {"calls": 0, "ops": 0.0,
+                                             "bytes": 0.0, "ops_s": 0.0})
+        w["calls"] += 1
+        w["ops"] += float(ops)
+        w["bytes"] += float(nbytes)
+        w["ops_s"] += float(ops) / ops_per_s
+
+    def reset(self) -> None:
+        self.by_kernel = {}
+
+
+META_WORK = WorkTally()
+_META_ROUTE = [0]
+
+
+@contextlib.contextmanager
+def card_route_on_meta():
+    """Inside the context, the dispatchers send ``meta`` tensors where
+    they send CUDA tensors, to the ``*_cuda`` wrappers (which then launch
+    nothing and count their work); outside it a meta tensor is refused
+    as before.  CPU tensors are unaffected either way."""
+    _META_ROUTE[0] += 1
+    try:
+        yield
+    finally:
+        _META_ROUTE[0] -= 1
+
+
+def card_route(t) -> bool:
+    """Whether a dispatcher sends ``t`` to its kernel's wrapper: a CUDA
+    tensor, or a meta tensor inside ``card_route_on_meta``."""
+    return t.is_cuda or (t.is_meta and _META_ROUTE[0] > 0)

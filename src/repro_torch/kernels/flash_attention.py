@@ -13,7 +13,10 @@ of any tile.
 
 ``flash_attention`` launches the CUDA kernel (``csrc/flash_attention.cu``:
 bf16 on the tensor cores, f32 on the CUDA cores) for CUDA tensors and
-runs the plain version beside it for CPU tensors.
+runs the plain version beside it for CPU tensors.  On ``meta`` tensors
+``flash_attention_cuda`` makes the card call's allocation, launches
+nothing, and adds ``work`` to ``build.META_WORK``; the dispatcher sends
+them there inside ``build.card_route_on_meta``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,28 @@ TILES = {torch.float32: (64, 32), torch.bfloat16: (128, 64)}
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1.0e30
+
+
+def work(b, sq, sk, h, kh, d, causal, elem):
+    """(operations, bytes) of one call: q, k, v read and the output
+    written once; 4 d operations per live (query, key) pair and head
+    (a query i sees keys 0..min(i, sk - 1) under ``causal``)."""
+    if causal:
+        m = min(sq, sk)
+        pairs = m * (m + 1) // 2 + (sq - m) * sk
+    else:
+        pairs = sq * sk
+    nbytes = (2 * b * sq * h * d + 2 * b * sk * kh * d) * elem
+    return 4.0 * b * h * d * pairs, float(nbytes)
+
+
+def flash_bound(b, sq, sk, h, kh, d, causal, elem):
+    """(bound_ms, bound_by) of one call, ``work`` at the bf16
+    tensor-core rate (elem 2) or the f32 rate of the CUDA cores (elem 4:
+    the f32 kernel's contract rules out TF32)."""
+    ops, nbytes = work(b, sq, sk, h, kh, d, causal, elem)
+    return build.bound(nbytes, ops, build.BF16_FLOPS_PER_S if elem == 2
+                       else build.F32_FLOPS_PER_S)
 
 
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
@@ -97,8 +122,9 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
     time): a data pointer at a multiple of 16 bytes and strides that are
     multiples of 8 elements."""
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError("flash_attention_cuda needs CUDA tensors")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError("flash_attention_cuda needs CUDA (or meta) "
+                         "tensors")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
@@ -127,6 +153,12 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     if b == 0 or sq == 0 or h == 0:
         return out
+    if dev.type == "meta":
+        build.META_WORK.add("flash_attention", *work(
+            b, sq, sk, h, kh, d, causal, q.element_size()),
+            build.BF16_FLOPS_PER_S if q.element_size() == 2
+            else build.F32_FLOPS_PER_S)
+        return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = build.lib("flash_attention").flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -140,9 +172,10 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     q_block: int = 512, k_block: int = 1024) -> Tensor:
-    """The kernel for CUDA tensors (at its own tiles), the plain version
-    at ``q_block``/``k_block`` for CPU tensors."""
-    if q.is_cuda:
+    """The kernel for CUDA tensors (at its own tiles; meta ones inside
+    ``build.card_route_on_meta``), the plain version at
+    ``q_block``/``k_block`` for CPU tensors."""
+    if build.card_route(q):
         return flash_attention_cuda(q, k, v, causal=causal)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")

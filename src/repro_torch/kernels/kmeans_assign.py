@@ -8,6 +8,10 @@ which the caller adds; a point with no centroid below MASK_DIST gets -1.
 
 ``kmeans_assign`` launches the CUDA kernel (``csrc/kmeans_assign.cu``)
 for CUDA tensors and runs the plain version beside it for CPU tensors.
+On ``meta`` tensors ``kmeans_assign_cuda`` makes the card call's
+allocations, launches nothing, and adds ``work`` to
+``build.META_WORK`` (the dry-run's count); the dispatcher sends them
+there inside ``build.card_route_on_meta``.
 """
 from __future__ import annotations
 
@@ -38,8 +42,17 @@ def kmeans_assign_plain(xs: Tensor, centroids: Tensor, aux: Tensor
     return assign, mind
 
 
+def work(n: int, c: int, d: int) -> Tuple[float, float]:
+    """(operations, bytes) of one call: points and centroids read once,
+    the two outputs written once, 2 d operations a (point, centroid)
+    pair (f32, on the CUDA cores)."""
+    return 2.0 * n * c * d, (n + c) * d * 4.0 + n * 8.0
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(dev: torch.device) -> int:
+    if dev.type == "meta":
+        return build.H100_SMS
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
@@ -56,8 +69,8 @@ def kmeans_assign_cuda(xs: Tensor, centroids: Tensor, aux: Tensor
                        ) -> Tuple[Tensor, Tensor]:
     """Launch the CUDA kernel.  Raises on any operand it does not take."""
     dev = xs.device
-    if dev.type != "cuda":
-        raise ValueError("kmeans_assign_cuda needs CUDA tensors")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError("kmeans_assign_cuda needs CUDA (or meta) tensors")
     for name, t in (("xs", xs), ("centroids", centroids), ("aux", aux)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, xs on {dev}")
@@ -82,6 +95,10 @@ def kmeans_assign_cuda(xs: Tensor, centroids: Tensor, aux: Tensor
         # one buffer: part[1] holds the minima's f32 bits
         part = torch.empty((2, splits, n), dtype=torch.int32, device=dev)
         part_a, part_d = part[0].data_ptr(), part[1].data_ptr()
+    if dev.type == "meta":
+        build.META_WORK.add("kmeans_assign", *work(n, c, d),
+                            build.F32_FLOPS_PER_S)
+        return out_a, out_d
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = build.lib("kmeans_assign").kmeans_assign(
         xs.data_ptr(), centroids.data_ptr(), aux.data_ptr(),
@@ -94,8 +111,9 @@ def kmeans_assign_cuda(xs: Tensor, centroids: Tensor, aux: Tensor
 
 def kmeans_assign(xs: Tensor, centroids: Tensor, aux: Tensor
                   ) -> Tuple[Tensor, Tensor]:
-    """The kernel for CUDA tensors, its plain version for CPU tensors."""
-    if xs.is_cuda:
+    """The kernel for CUDA tensors (and meta ones inside
+    ``build.card_route_on_meta``), its plain version for CPU tensors."""
+    if build.card_route(xs):
         return kmeans_assign_cuda(xs, centroids, aux)
     if xs.device.type != "cpu":
         raise ValueError(f"unsupported device {xs.device}")

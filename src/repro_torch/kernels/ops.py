@@ -7,7 +7,9 @@ Dispatch policy (``impl``):
              tensors, the kernel's plain version beside it for CPU
              tensors (the JAX package's "pallas", run in interpret mode
              on a CPU).
-  - "auto":  "cuda" for CUDA tensors, "torch" for CPU tensors.
+  - "auto":  "cuda" for CUDA tensors, "torch" for CPU tensors; meta
+             tensors take "cuda" inside ``build.card_route_on_meta`` (the
+             dry-run counts the card's route) and "torch" outside it.
 
 The wrappers own un-padding and the terms the kernels leave out
 (``||q||^2`` / ``||x||^2``), so callers never see kernel constraints.
@@ -24,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import build as _build
 from . import kmeans_assign as _kmeans_assign_kernel
 from . import ref
 from . import scan_topk as _scan_topk_kernel
@@ -39,7 +42,7 @@ def _resolve(impl: str, t: Tensor) -> str:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl == "auto":
-        return "cuda" if t.is_cuda else "torch"
+        return "cuda" if _build.card_route(t) else "torch"
     return impl
 
 

@@ -22,6 +22,12 @@ queries:
 
 Every ``k_pad`` up to ``K_MAX`` runs on the kernel; past what shared
 memory holds, the top-K buffers live in a global scratch.
+
+On ``meta`` tensors ``scan_topk_cuda`` makes the card call's allocations
+(the "rows" design's workspace is made once per stream on the card, so
+a call allocates only its outputs), launches nothing, and adds ``work``
+to ``build.META_WORK``; the dispatcher sends them there inside
+``build.card_route_on_meta``.
 """
 from __future__ import annotations
 
@@ -114,8 +120,18 @@ def rows_plan(q: int, n: int, k_pad: int, sms: int) -> Dict[str, int]:
             "part": 2 * q * blocks * k_pad if blocks > 1 else 0}
 
 
+def work(q: int, n: int, d: int, k_pad: int, elem: int = 4
+         ) -> Tuple[float, float]:
+    """(operations, bytes) of one call: queries and rows read once (in
+    the rows' storage type), the top-``k_pad`` lists written once, 2 d
+    operations a (query, row) pair."""
+    return 2.0 * q * n * d, (q + n) * d * elem + 2.0 * q * k_pad * 4
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(dev: torch.device) -> int:
+    if dev.type == "meta":
+        return build.H100_SMS
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
@@ -145,8 +161,8 @@ def scan_topk_cuda(queries: Tensor, xs: Tensor,
     if metric not in ("l2", "ip"):
         raise ValueError(f"unknown metric: {metric}")
     dev = xs.device
-    if dev.type != "cuda":
-        raise ValueError("scan_topk_cuda needs CUDA tensors")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError("scan_topk_cuda needs CUDA (or meta) tensors")
     if xs.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"xs must be f32 or bf16, got {xs.dtype}")
     if queries.dtype != xs.dtype:
@@ -174,10 +190,19 @@ def scan_topk_cuda(queries: Tensor, xs: Tensor,
                                         device=dev), k_pad)
     out_d = torch.empty((q, k_pad), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, k_pad), dtype=torch.int32, device=dev)
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     rows = design(q) == "rows"
     plan = (rows_plan if rows else tiles_plan)(q, n, k_pad, _sm_count(dev))
     half, glob = plan["part"] // 2, plan["gbuf"]
+    if dev.type == "meta":
+        if not (rows and half) and plan["part"] + glob:
+            scratch = torch.empty(plan["part"] + glob, dtype=torch.int32,
+                                  device=dev)
+            del scratch
+        build.META_WORK.add("scan_topk", *work(q, n, d, k_pad,
+                                               xs.element_size()),
+                            build.F32_FLOPS_PER_S)
+        return out_d, out_i
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     ticket = base = None
     if rows and half:              # word 0 the ticket, then the scratch
         ticket = _workspace(dev, stream, plan["part"] + glob).data_ptr()
@@ -211,8 +236,9 @@ def scan_topk_cuda(queries: Tensor, xs: Tensor,
 
 def scan_topk(queries: Tensor, xs: Tensor, valid: Optional[Tensor] = None,
               *, k_pad: int, metric: str = "l2") -> Tuple[Tensor, Tensor]:
-    """The kernel for CUDA tensors, its plain version for CPU tensors."""
-    if xs.is_cuda:
+    """The kernel for CUDA tensors (and meta ones inside
+    ``build.card_route_on_meta``), its plain version for CPU tensors."""
+    if build.card_route(xs):
         return scan_topk_cuda(queries, xs, valid, k_pad=k_pad,
                               metric=metric)
     if xs.device.type != "cpu":

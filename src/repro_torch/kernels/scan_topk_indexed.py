@@ -29,6 +29,14 @@ replacing ``scan_topk_indexed_q8_pallas``) scans IVF-residual int8 codes:
 the int8 product is dequantized with per-query and per-row scales and the
 exact query-centroid term ``qc`` (``ref.scan_indexed_q8_ref`` states the
 formula).  ``quantize_int8`` / ``quantize_int8_residual`` make the codes.
+
+On ``meta`` tensors both ``*_cuda`` wrappers make the card call's
+allocations, launch nothing and load no library (``meta_placement``
+stands in for the library's placement query), and add ``work`` to
+``build.META_WORK``; the dispatchers send them there inside
+``build.card_route_on_meta``.  A meta call cannot see the mask, so its
+work counts every (query, union slot) pair and every row as live: an
+upper bound.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from . import build, ref
 from .ref import MASK_DIST, quantize_int8, quantize_int8_residual
 
 __all__ = ["K_MAX", "LAUNCHES", "LAUNCHES_Q8", "QT", "buffer_size",
+           "meta_placement", "work",
            "group_queries_cuda", "group_queries_plain", "live_rows",
            "slot_order",
            "quantize_int8", "quantize_int8_residual", "scan_topk_indexed",
@@ -56,6 +65,8 @@ K_MAX = 16384                # largest k_pad the kernels take
 SCRATCH_BYTES = 2 << 30      # bound on the (B, Uc, k_pad) partial lists
 QT = 16                      # queries per tile of the grouped driver
 TOPK_SCRATCH_BYTES = 256 << 20   # bound on the global top-K buffers
+# the widest rows a block's shared memory stages on an H100 (227 KB)
+MAX_WIDTH = {"f32": 1892, "bf16": 1888, "q8": 4832}
 
 
 def _check_k_pad(k_pad: int) -> None:
@@ -77,6 +88,37 @@ def buffer_size(k_pad: int) -> int:
     while buf < k_pad + 32:
         buf *= 2
     return buf
+
+
+def work(b: int, u: int, s: int, d: int, k_pad: int, elem: int,
+         q8: bool = False, rows: float = None, active: float = None
+         ) -> Tuple[float, float]:
+    """(operations, bytes) of one call of ``b`` queries over ``u`` union
+    slots of ``s`` rows of width ``d``: the ``rows`` the selected
+    partitions hold live (default every row of the union) read once (with
+    int8 codes their scales and ``aux`` too), the queries read and the
+    top-``k_pad`` written once, the mask and the live flags read, and 2 d
+    operations for each of the ``active`` (query, live row) pairs the
+    mask selects (default all ``b * u * s``)."""
+    rows = u * s if rows is None else rows
+    active = b * u * s if active is None else active
+    if q8:
+        nbytes = (rows * (d + 4 + 4 + 1) + b * (d + 4) + b * u * (4 + 1)
+                  + 2 * b * k_pad * 4)
+    else:
+        nbytes = rows * d * elem + b * d * 4 + 2 * b * k_pad * 4 \
+            + b * u + rows
+    return 2.0 * active * d, float(nbytes)
+
+
+def meta_placement(kind: str, d: int, k_pad: int) -> int:
+    """``_placement`` for a call on meta tensors, with no library: the
+    top-K buffers in shared memory while they take at most the kernels'
+    ``TOPK_SMEM_BYTES`` (64 KB), else in global scratch; rows past the
+    card's widths (``MAX_WIDTH``) are too wide."""
+    if d > MAX_WIDTH[kind]:
+        return 2
+    return 0 if QT * buffer_size(k_pad) * 8 <= 64 << 10 else 1
 
 
 def slot_order(sel: Tensor, nrows: Tensor, uc: int) -> Tensor:
@@ -182,9 +224,12 @@ def _grouped_scratch(kind: str, d: int, b: int, u: int, uc: int,
                      ) -> Tuple[Tensor, Optional[Tensor], int]:
     """(workspace, global top-K buffers or None, their number of
     blocks) for one launch of an indexed kernel."""
-    where = _placement(kind, d, k_pad, dev.index
-                       if dev.index is not None
-                       else torch.cuda.current_device())
+    if dev.type == "meta":
+        where = meta_placement(kind, d, k_pad)
+    else:
+        where = _placement(kind, d, k_pad, dev.index
+                           if dev.index is not None
+                           else torch.cuda.current_device())
     if where == 2:
         raise ValueError(f"rows of width {d} are too wide for the {kind} "
                          f"kernel: its block's shared memory holds the "
@@ -239,8 +284,9 @@ def scan_topk_indexed_cuda(queries: Tensor, data: Tensor, valid: Tensor,
             raise ValueError(f"{name} is on {t.device}, data on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if dev.type != "cuda":
-        raise ValueError("scan_topk_indexed_cuda needs CUDA tensors")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError("scan_topk_indexed_cuda needs CUDA (or meta) "
+                         "tensors")
     if data.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"data must be f32 or bf16, got {data.dtype}")
     if queries.dtype != data.dtype:
@@ -271,6 +317,10 @@ def scan_topk_indexed_cuda(queries: Tensor, data: Tensor, valid: Tensor,
     ws, gbuf, blocks = _grouped_scratch(kind, d, b, u, uc, k_pad, dev)
     nrows = live_rows(valid)
     order = slot_order(sel, nrows, uc)
+    if dev.type == "meta":
+        build.META_WORK.add("scan_topk_indexed", *work(
+            b, u, s, d, k_pad, data.element_size()), build.F32_FLOPS_PER_S)
+        return run_d, run_i
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = build.lib("scan_topk_indexed").scan_indexed(
         queries.data_ptr(), data.data_ptr(), valid.data_ptr(),
@@ -288,8 +338,9 @@ def scan_topk_indexed_cuda(queries: Tensor, data: Tensor, valid: Tensor,
 def scan_topk_indexed(queries: Tensor, data: Tensor, valid: Tensor,
                       sel: Tensor, qmask: Tensor, *, k_pad: int,
                       metric: str = "l2") -> Tuple[Tensor, Tensor]:
-    """The kernel for CUDA tensors, its plain version for CPU tensors."""
-    if data.is_cuda:
+    """The kernel for CUDA tensors (and meta ones inside
+    ``build.card_route_on_meta``), its plain version for CPU tensors."""
+    if build.card_route(data):
         return scan_topk_indexed_cuda(queries, data, valid, sel, qmask,
                                       k_pad=k_pad, metric=metric)
     if data.device.type != "cpu":
@@ -345,8 +396,9 @@ def scan_topk_indexed_q8_cuda(q_codes: Tensor, q_scales: Tensor,
             raise ValueError(f"{name} must be contiguous")
         if t.dtype != dtype:
             raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if dev.type != "cuda":
-        raise ValueError("scan_topk_indexed_q8_cuda needs CUDA tensors")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError("scan_topk_indexed_q8_cuda needs CUDA (or meta) "
+                         "tensors")
     p, s, d = codes.shape
     b, u = qmask.shape
     if d % 4 or codes.data_ptr() % 4 or q_codes.data_ptr() % 4:
@@ -374,6 +426,10 @@ def scan_topk_indexed_q8_cuda(q_codes: Tensor, q_scales: Tensor,
     ws, gbuf, blocks = _grouped_scratch("q8", d, b, u, uc, k_pad, dev)
     nrows = live_rows(valid)
     order = slot_order(sel, nrows, uc)
+    if dev.type == "meta":
+        build.META_WORK.add("scan_topk_indexed_q8", *work(
+            b, u, s, d, k_pad, 1, q8=True), build.INT8_OPS_PER_S)
+        return run_d, run_i
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = build.lib("scan_topk_indexed_q8").scan_indexed_q8(
         q_codes.data_ptr(), q_scales.data_ptr(), codes.data_ptr(),
@@ -396,7 +452,7 @@ def scan_topk_indexed_q8(q_codes: Tensor, q_scales: Tensor, codes: Tensor,
                          ) -> Tuple[Tensor, Tensor]:
     """The int8 kernel for CUDA tensors, its plain version for CPU ones."""
     args = (q_codes, q_scales, codes, scales, aux, qc, valid, sel, qmask)
-    if codes.is_cuda:
+    if build.card_route(codes):
         return scan_topk_indexed_q8_cuda(*args, k_pad=k_pad, metric=metric)
     if codes.device.type != "cpu":
         raise ValueError(f"unsupported device {codes.device}")

@@ -28,11 +28,10 @@ from .gnn import GAT, GATConfig
 from .recsys import MODELS
 from .transformer import MoEConfig, Transformer, TransformerConfig
 
-# the reference's mesh fields and attention switch, which the port drops,
-# and the MoE fields that the port's MoEConfig keeps (all but the
-# reference's ``impl``)
-DROPPED_FIELDS = ("dp_axes", "tp_axis", "seq_shard_activations",
-                  "attn_impl")
+# the reference's attention switch, which the port drops, and the MoE
+# fields that the port's MoEConfig keeps (all but the reference's
+# ``impl``)
+DROPPED_FIELDS = ("attn_impl",)
 MOE_FIELDS = tuple(f.name for f in dataclasses.fields(MoEConfig))
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -55,10 +54,12 @@ def _torch_dtype(x) -> torch.dtype:
 
 
 def config_from_jax(fields: Dict[str, Any]) -> TransformerConfig:
-    """The port's config from the reference config's fields (its mesh
-    fields, ``attn_impl`` and the MoE's ``impl`` dropped, dtypes made
-    torch dtypes)."""
+    """The port's config from the reference config's fields
+    (``attn_impl`` and the MoE's ``impl`` dropped, dtypes made torch
+    dtypes, ``dp_axes`` a tuple)."""
     f = {k: v for k, v in fields.items() if k not in DROPPED_FIELDS}
+    if "dp_axes" in f:
+        f["dp_axes"] = tuple(f["dp_axes"])
     moe = f.get("moe")
     if moe is not None and not isinstance(moe, MoEConfig):
         moe = moe if isinstance(moe, dict) else dataclasses.asdict(moe)

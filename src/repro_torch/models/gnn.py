@@ -8,9 +8,16 @@ segment reduction reads them in that order, with no atomics
 (``layers.reduce_sorted``), so a forward gives the same bits on every run.
 The training losses are the reference's ``loss_fn`` (node classification,
 with an optional label mask) and the pooled molecule loss of its
-``families._make_gnn_pooled_step`` (``pooled_loss``), in their one-device
-form; the edge-parallel ``axis`` (``_psum``/``_pmax``) waits for the
-sharding specs.
+``families._make_gnn_pooled_step`` (``pooled_loss``).
+
+Distribution is the reference's edge parallelism: with a ``mesh`` and
+``axis`` (its data axes) each rank holds a shard of the edges and the
+whole node features and weights (``param_specs``: replicated), every
+segment reduction takes the local partial then a ``psum`` (``pmax`` for
+the softmax's max) over the axes, and a node tensor replicated over the
+axes enters the per-edge computation through ``Mesh.pvary``, so the
+backward sums the edges' contributions.  Without them (or on a one-rank
+mesh) it is the one-device forward.
 """
 from __future__ import annotations
 
@@ -22,7 +29,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..core.device import resolve_device
-from .layers import dense_init, reduce_sorted, segment_sum, sort_segments
+from ..launch.mesh import P
+from .layers import (dense_init, reduce_sorted, segment_counts, segment_sum,
+                     sort_segments)
 
 Tensor = torch.Tensor
 
@@ -93,30 +102,52 @@ class GAT(nn.Module):
         return self.layers[0].w.device
 
 
+def param_specs(cfg: GATConfig) -> dict:
+    """The reference's layout: every weight replicated (edge
+    parallelism shards only the edges)."""
+    return {f"layers.{i}.{k}": P(None, None, None) if k == "w"
+            else P(None, None)
+            for i in range(cfg.n_layers) for k in ("w", "a_src", "a_dst",
+                                                   "b")}
+
+
 def _gat_layer_sorted(lp: GATLayer, h: Tensor, src: Tensor, dst: Tensor,
-                      lengths: Tensor, cfg: GATConfig, last: bool) -> Tensor:
+                      lengths: Tensor, cfg: GATConfig, last: bool,
+                      mesh=None, axis=()) -> Tensor:
     """``gat_layer`` on edges already sorted by destination (``lengths``:
-    each node's count of incoming edges)."""
+    each node's count of incoming edges), the segment reductions summed
+    over ``axis`` of ``mesh`` when given."""
     n_nodes = h.shape[0]
     d_in, heads, d_out = lp.w.shape
+
+    def vary(t):
+        return t if mesh is None else mesh.pvary(t, axis)
+
+    def psum(t):
+        return t if mesh is None else mesh.psum(t, axis)
+
     wh = (h @ lp.w.reshape(d_in, heads * d_out).to(h.dtype)
           ).reshape(n_nodes, heads, d_out)
-    s_src = torch.sum(wh * lp.a_src.to(h.dtype), dim=-1)       # (N, H)
-    s_dst = torch.sum(wh * lp.a_dst.to(h.dtype), dim=-1)
+    wh = vary(wh)
+    s_src = torch.sum(wh * vary(lp.a_src).to(h.dtype), dim=-1)  # (N, H)
+    s_dst = torch.sum(wh * vary(lp.a_dst).to(h.dtype), dim=-1)
     e = F.leaky_relu(s_src[src] + s_dst[dst], cfg.negative_slope)
     # no gradient through the max, which cancels in the softmax (the
     # reference's stop_gradient)
     smax = reduce_sorted(e.detach(), lengths, "max")
-    smax = torch.clamp(torch.nan_to_num(smax, neginf=-1e30), min=-1e30)
+    smax = torch.nan_to_num(smax, neginf=-1e30)
+    if mesh is not None:
+        smax = mesh.pmax(smax, axis)
+    smax = torch.clamp(smax, min=-1e30)
     ex = torch.exp(e - smax[dst])
     del e
-    denom = reduce_sorted(ex, lengths, "sum")
+    denom = vary(psum(reduce_sorted(ex, lengths, "sum")))
     alpha = ex / torch.clamp(denom[dst], min=1e-20)             # (E, H)
     del ex
     msg = wh[src]                                               # (E, H, dO)
     msg *= alpha[..., None]
     del alpha
-    out = reduce_sorted(msg, lengths, "sum") + lp.b.to(h.dtype)
+    out = psum(reduce_sorted(msg, lengths, "sum")) + lp.b.to(h.dtype)
     if last:
         return torch.mean(out, dim=1)                           # avg heads
     out = out.reshape(n_nodes, -1)                              # concat
@@ -136,10 +167,12 @@ def gat_layer(lp: GATLayer, h: Tensor, src: Tensor, dst: Tensor,
                              last)
 
 
-def forward(model: GAT, feats: Tensor, src: Tensor, dst: Tensor) -> Tensor:
+def forward(model: GAT, feats: Tensor, src: Tensor, dst: Tensor,
+            mesh=None, axis=()) -> Tensor:
     """Node logits (N, n_classes) on the model's device: feats (N, d_in),
-    src/dst (E,) integer edges (message from src to dst).  The edges are
-    sorted once for every layer."""
+    src/dst (E,) integer edges (message from src to dst; with ``mesh``,
+    this rank's shard of them, the reductions summed over ``axis``).  The
+    edges are sorted once for every layer."""
     dev = model.device
     h = feats.to(dev)
     order, lengths = sort_segments(dst.to(dev).long(), h.shape[0])
@@ -147,19 +180,21 @@ def forward(model: GAT, feats: Tensor, src: Tensor, dst: Tensor) -> Tensor:
     del order
     for i, lp in enumerate(model.layers):
         h = _gat_layer_sorted(lp, h, src, dst, lengths, model.cfg,
-                              last=i == len(model.layers) - 1)
+                              last=i == len(model.layers) - 1, mesh=mesh,
+                              axis=axis)
     return h
 
 
 def graph_pool_logits(model: GAT, feats: Tensor, src: Tensor, dst: Tensor,
-                      graph_of: Tensor, n_graphs: int) -> Tensor:
+                      graph_of: Tensor, n_graphs: int, mesh=None,
+                      axis=()) -> Tensor:
     """Batched small graphs (the ``molecule`` shape): node logits
     mean-pooled per graph -> (n_graphs, n_classes); a graph with no node
     pools to 0."""
-    node_logits = forward(model, feats, src, dst)
+    node_logits = forward(model, feats, src, dst, mesh, axis)
     graph_of = graph_of.to(model.device).long()
     sums = segment_sum(node_logits, graph_of, n_graphs)
-    cnt = torch.bincount(graph_of, minlength=n_graphs).float()
+    cnt = segment_counts(graph_of, n_graphs).float()
     return sums / torch.clamp(cnt[:, None], min=1.0)
 
 
@@ -169,11 +204,13 @@ def _nll(logits: Tensor, labels: Tensor) -> Tensor:
 
 
 def loss_fn(model: GAT, feats: Tensor, src: Tensor, dst: Tensor,
-            labels: Tensor, label_mask: Optional[Tensor] = None) -> Tensor:
+            labels: Tensor, label_mask: Optional[Tensor] = None, mesh=None,
+            axis=()) -> Tensor:
     """Node classification: the cross-entropy of the node logits, the mean
     over the nodes, or over ``label_mask``'s weight (``sum(nll * mask) /
     max(sum(mask), 1)``)."""
-    nll = _nll(forward(model, feats, src, dst), labels.to(model.device))
+    nll = _nll(forward(model, feats, src, dst, mesh, axis),
+               labels.to(model.device))
     if label_mask is not None:
         mask = label_mask.to(model.device).float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
@@ -181,8 +218,10 @@ def loss_fn(model: GAT, feats: Tensor, src: Tensor, dst: Tensor,
 
 
 def pooled_loss(model: GAT, feats: Tensor, src: Tensor, dst: Tensor,
-                graph_of: Tensor, labels: Tensor, n_graphs: int) -> Tensor:
+                graph_of: Tensor, labels: Tensor, n_graphs: int, mesh=None,
+                axis=()) -> Tensor:
     """Graph classification over batched small graphs (the ``molecule``
     shape): the mean cross-entropy of ``graph_pool_logits``."""
-    logits = graph_pool_logits(model, feats, src, dst, graph_of, n_graphs)
+    logits = graph_pool_logits(model, feats, src, dst, graph_of, n_graphs,
+                               mesh, axis)
     return torch.mean(_nll(logits, labels.to(model.device)))

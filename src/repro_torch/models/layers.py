@@ -8,7 +8,9 @@ Conventions kept from the reference: weights are used as ``x @ W`` with
 ``W`` of shape ``(d_in, d_out)``; the parameter dtype and the compute
 dtype are separate, and every use casts a weight to the compute dtype
 first; reductions that the reference asks in f32 are taken in f32.
-``spec_mlp`` waits for the sharding specs.
+``spec_mlp`` is the reference's MLP layout; ``RowShard`` is a table
+split by rows over mesh axes, which ``take_fill`` and ``embedding_bag``
+read by masked local lookups summed over the axes.
 
 The GNN's segment reductions (``segment_sum``, ``segment_max``,
 ``segment_softmax``) take their rows grouped by segment, each segment
@@ -28,6 +30,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import NEG_INF
+from ..launch.mesh import P
 
 Tensor = torch.Tensor
 
@@ -215,6 +218,22 @@ class MLP(nn.Module):
                          requires_grad=False) for _, o in pairs)
 
 
+def spec_mlp(dims: Sequence[int], hidden_axis: Optional[str] = None
+             ) -> dict:
+    """The reference's MLP layout by the port's names (``w.i``,
+    ``b.i``): with ``hidden_axis``, every weight but the last split by
+    columns over it and the last by rows, the biases but the last with
+    their weight's columns."""
+    n = len(dims) - 1
+    out = {}
+    for i in range(n):
+        last = i == n - 1
+        out[f"w.{i}"] = P(hidden_axis, None) if last else P(None,
+                                                            hidden_axis)
+        out[f"b.{i}"] = P(None) if last else P(hidden_axis)
+    return out
+
+
 def init_mlp(generator: torch.Generator, dims: Sequence[int],
              dtype=torch.float32) -> MLP:
     """Plain MLP tower: dims = (in, h1, ..., out)."""
@@ -238,6 +257,56 @@ def apply_mlp(params: MLP, x: Tensor,
 # Gathers and the embedding bag
 # ---------------------------------------------------------------------------
 
+class RowShard:
+    """This rank's rows of a table split by rows over mesh ``axes``:
+    ``local`` holds rows ``[i * r, (i + 1) * r)`` of ``rows`` (``i`` the
+    rank's index along the axes) along dimension ``dim`` (1 for DLRM's
+    ``(F, V, d)`` tables).  A lookup gathers the rows it holds and zeros
+    for the others, then sums over the axes: a ``psum`` where every rank
+    of the axes looks up the same ids, or, with ``ids_sharded`` (the ids
+    differ along the axes), the ids all-gathered first and the rows
+    reduce-scattered back.  ``vary``: the axes along which the ids vary
+    but the table is replicated (its gradient is summed over them)."""
+
+    def __init__(self, local: Tensor, rows: int, mesh, axes, *,
+                 vary=(), ids_sharded: bool = False, dim: int = 0):
+        self.local, self.rows, self.mesh = local, rows, mesh
+        self.axes, self.vary = tuple(axes), tuple(vary)
+        self.ids_sharded, self.row_dim = ids_sharded, dim
+
+    @property
+    def shape(self):
+        s = list(self.local.shape)
+        s[self.row_dim] = self.rows
+        return torch.Size(s)
+
+    def dim(self) -> int:
+        return self.local.dim()
+
+    def lookup(self, rows: Tensor) -> Tensor:
+        """Rows ``rows`` (int64, in ``[0, V)``; for ``dim=1`` the last
+        axis is the field) of the whole table."""
+        mesh, axes = self.mesh, self.axes
+        t = mesh.pvary(self.local, self.vary)
+        if self.ids_sharded:
+            rows = mesh.all_gather(rows, axes, dim=0)
+        vl = t.shape[self.row_dim]
+        loc = rows - mesh.index(axes) * vl
+        hit = (loc >= 0) & (loc < vl)
+        loc = loc.clamp(0, vl - 1)
+        if self.row_dim == 1:                # (F, V_l, d): field-major
+            f = t.shape[0]
+            loc = loc + vl * torch.arange(f, device=rows.device)
+            t = t.reshape(f * vl, t.shape[2])
+        out = t.index_select(0, loc.reshape(-1)).reshape(*rows.shape,
+                                                         t.shape[-1])
+        out = torch.where(hit[..., None], out, torch.zeros(
+            (), dtype=out.dtype, device=out.device))
+        if self.ids_sharded:
+            return mesh.psum_scatter(out, axes, dim=0)
+        return mesh.psum(out, axes)
+
+
 def fill_rows(ids: Tensor, v: int):
     """``jnp.take``'s default ("fill") indexing of a V-row table: (the
     rows to read, clipped into ``[0, V)``, as int64; which ids are in
@@ -253,10 +322,14 @@ def take_fill(table: Tensor, ids: Tensor) -> Tensor:
     which every gather of the reference's recsys models outside
     ``embedding_bag`` has (``fill_rows``); an out-of-range id reads a row
     of NaN.  The gather only sees clipped rows, so no unchecked id
-    reaches the card's indexing (a device-side assert)."""
+    reaches the card's indexing (a device-side assert).  A ``RowShard``
+    table reads its shards (``RowShard.lookup``)."""
     rows, ok = fill_rows(ids, table.shape[0])
-    out = table.index_select(0, rows.reshape(-1))
-    out = out.reshape(*ids.shape, *table.shape[1:])
+    if isinstance(table, RowShard):
+        out = table.lookup(rows)
+    else:
+        out = table.index_select(0, rows.reshape(-1))
+        out = out.reshape(*ids.shape, *table.shape[1:])
     return out.masked_fill_(~ok.reshape(*ids.shape,
                                         *(1,) * (table.dim() - 1)),
                             float("nan"))
@@ -273,8 +346,12 @@ def embedding_bag(table: Tensor, ids: Tensor, *, mode: str = "sum",
     if mode not in ("sum", "mean"):
         raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
     v = table.shape[0]
-    flat = ids.long().clamp(0, v - 1).reshape(-1)
-    vecs = table.index_select(0, flat).reshape(*ids.shape, table.shape[1])
+    if isinstance(table, RowShard):
+        vecs = table.lookup(ids.long().clamp(0, v - 1))
+    else:
+        flat = ids.long().clamp(0, v - 1).reshape(-1)
+        vecs = table.index_select(0, flat).reshape(*ids.shape,
+                                                   table.shape[1])
     if weights is not None:
         vecs = vecs * weights[..., None]
     if valid is not None:
@@ -298,8 +375,17 @@ def sort_segments(segment_ids: Tensor, num_segments: int
     length as int64): rows taken in that order are grouped by segment and
     keep their order inside it."""
     order = torch.argsort(segment_ids, stable=True)
-    lengths = torch.bincount(segment_ids, minlength=num_segments)
-    return order, lengths
+    return order, segment_counts(segment_ids, num_segments)
+
+
+def segment_counts(segment_ids: Tensor, num_segments: int) -> Tensor:
+    """Each segment's count of rows, int64 (integer adds: the same on
+    every run; no host sync, and it runs on ``meta``, where ``bincount``
+    has no kernel)."""
+    ids = segment_ids.long()
+    return torch.zeros(num_segments, dtype=torch.long,
+                       device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
 
 
 def reduce_sorted(data: Tensor, lengths: Tensor, reduce: str) -> Tensor:

@@ -32,8 +32,9 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from .layers import (MLP, apply_mlp, dense_init, embedding_bag, fill_rows,
-                     rmsnorm, take_fill)
+from ..launch.mesh import P
+from .layers import (MLP, RowShard, apply_mlp, dense_init, embedding_bag,
+                     fill_rows, rmsnorm, spec_mlp, take_fill)
 
 Tensor = torch.Tensor
 Batch = Dict[str, Tensor]
@@ -193,10 +194,60 @@ class DLRM(_RecsysModel):
                             + cfg.top_mlp)
 
 
+# ---------------------------------------------------------------------------
+# Sharding specs: the reference's, by the port's parameter names.  Tables
+# are row-sharded over the model axis (classic DLRM model parallelism);
+# the dense towers are replicated, the two-tower's towers split by their
+# hidden columns over the model axis.
+# ---------------------------------------------------------------------------
+
+def _prefixed(prefix: str, specs: dict) -> dict:
+    return {f"{prefix}.{k}": v for k, v in specs.items()}
+
+
+def din_specs(cfg: DINConfig, tp: str = "model") -> dict:
+    d = cfg.embed_dim
+    return {"item_embed": P(tp, None),
+            **_prefixed("attn", spec_mlp((4 * d,) + cfg.attn_mlp + (1,))),
+            **_prefixed("mlp", spec_mlp((2 * d + cfg.n_dense,) + cfg.mlp
+                                        + (1,)))}
+
+
+def sasrec_specs(cfg: SASRecConfig, tp: str = "model") -> dict:
+    blk = {k: P(None, None) for k in ("wq", "wk", "wv", "wo", "ff1", "ff2")}
+    blk.update(ln1=P(None), ln2=P(None))
+    out = {}
+    for i in range(cfg.n_blocks):
+        out.update(_prefixed(f"blocks.{i}", blk))
+    out.update(item_embed=P(tp, None), pos_embed=P(None, None),
+               ln_f=P(None))
+    return out
+
+
+def twotower_specs(cfg: TwoTowerConfig, tp: str = "model") -> dict:
+    dims = (cfg.embed_dim,) + cfg.tower_mlp
+    return {"user_embed": P(tp, None), "item_embed": P(tp, None),
+            **_prefixed("user_tower", spec_mlp(dims, tp)),
+            **_prefixed("item_tower", spec_mlp(dims, tp))}
+
+
+def dlrm_specs(cfg: DLRMConfig, tp: str = "model") -> dict:
+    top_in = cfg.n_interactions + cfg.embed_dim
+    return {"tables": P(None, tp, None),
+            **_prefixed("bot", spec_mlp((cfg.n_dense,) + cfg.bot_mlp)),
+            **_prefixed("top", spec_mlp((top_in,) + cfg.top_mlp))}
+
+
 # the reference's model names (its ``ArchSpec`` registry) -> (config, model)
 MODELS = {"din": (DINConfig, DIN), "sasrec": (SASRecConfig, SASRec),
           "two-tower-retrieval": (TwoTowerConfig, TwoTower),
           "dlrm-rm2": (DLRMConfig, DLRM)}
+SPECS = {"din": din_specs, "sasrec": sasrec_specs,
+         "two-tower-retrieval": twotower_specs, "dlrm-rm2": dlrm_specs}
+# the row-sharded tables of each model
+TABLES = {"din": ("item_embed",), "sasrec": ("item_embed",),
+          "two-tower-retrieval": ("user_embed", "item_embed"),
+          "dlrm-rm2": ("tables",)}
 
 
 def batch_to(batch, device) -> Batch:
@@ -285,6 +336,9 @@ def _dlrm_lookup(tables: Tensor, sparse: Tensor) -> Tensor:
     gathered from table f with ``take_fill``'s semantics."""
     f, v, d = tables.shape
     rows, ok = fill_rows(sparse, v)
+    if isinstance(tables, RowShard):
+        return tables.lookup(rows).masked_fill_(~ok[..., None],
+                                                float("nan"))
     rows = rows + v * torch.arange(f, device=sparse.device)
     out = tables.reshape(f * v, d).index_select(0, rows.reshape(-1))
     return out.reshape(*sparse.shape, d).masked_fill_(~ok[..., None],

@@ -16,7 +16,10 @@ Paths:
 
 Weights keep the reference's orientation (``x @ W``, ``W`` as
 ``(d_in, d_out)``) and its cache layout ``(L, B, S, KH, dh)``.  The
-sharding specs are not ported.
+sharding specs (``param_specs``, ``cache_specs``, ``_act_specs``) are
+the reference's, keyed by the port's parameter names (a layer-stacked
+leaf's spec loses its layer axis); ``models/spmd.py`` runs one rank's
+part of these models on a mesh by them.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from ..kernels.flash_attention import flash_attention
+from ..launch.mesh import P, shard_shape
 from .layers import (apply_rope, decode_attention, dense_init, rmsnorm,
                      rope_frequencies)
 from .layers import flash_attention as train_attention
@@ -54,11 +58,12 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class TransformerConfig:
-    """The reference's model fields but its mesh fields (``dp_axes``,
-    ``tp_axis``, ``seq_shard_activations``) and ``attn_impl``: serving
-    always runs the flash kernel on the card, against unrepeated K/V.
+    """The reference's model fields but ``attn_impl``: serving always
+    runs the flash kernel on the card, against unrepeated K/V.
     ``remat`` and ``attn_grouped`` steer training only (one checkpoint per
-    layer; the training attention's grouped or repeat path)."""
+    layer; the training attention's grouped or repeat path).  The mesh
+    fields (``dp_axes``, ``tp_axis``, ``seq_shard_activations``) steer
+    only the sharding specs and ``models/spmd.py``."""
     n_layers: int
     d_model: int
     n_heads: int
@@ -75,6 +80,10 @@ class TransformerConfig:
     q_block: int = 512             # tiles of the plain attention
     k_block: int = 1024
     attn_grouped: bool = False
+    # mesh axis groups
+    dp_axes: Tuple[str, ...] = ("pod", "data")
+    tp_axis: str = "model"
+    seq_shard_activations: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -154,10 +163,17 @@ def _qkv(lp: Block, x: Tensor, cfg: TransformerConfig):
             v.reshape(b, s, cfg.n_kv_heads, dh))
 
 
+def swiglu(x: Tensor, w: Callable[[str], Tensor]) -> Tensor:
+    """SwiGLU of x in x's dtype through ``w("w_gate")``, ``w("w_up")``
+    and ``w("w_down")``, each weight fetched where it is used (a rank's
+    program gathers it there)."""
+    h = F.silu(x @ w("w_gate").to(x.dtype)) * (x @ w("w_up").to(x.dtype))
+    return h @ w("w_down").to(x.dtype)
+
+
 def _swiglu(p, x: Tensor) -> Tensor:
     """SwiGLU through ``p.w_gate``, ``p.w_up`` and ``p.w_down``."""
-    h = F.silu(x @ p.w_gate.to(x.dtype)) * (x @ p.w_up.to(x.dtype))
-    return h @ p.w_down.to(x.dtype)
+    return swiglu(x, lambda n: getattr(p, n))
 
 
 @dataclass
@@ -169,6 +185,8 @@ class Routing:
     slot: Tensor    # (ng, g, k) int64 place in the expert's queue
     cap: int        # slots an expert has per group; slot >= cap: dropped
     aux: Tensor     # f32 scalar, the Switch load-balancing term
+    me: Tensor      # (E,) f32 mean router probabilities over the rows
+    ce: Tensor      # (E,) f32 share of rows whose first choice is e
 
 
 def route(moe: MoE, x: Tensor, mcfg: MoEConfig) -> Routing:
@@ -201,50 +219,63 @@ def route(moe: MoE, x: Tensor, mcfg: MoEConfig) -> Routing:
     pairs = top_e.reshape(ng, g * k, 1)
     seen = F.one_hot(pairs[..., 0], e).cumsum(1)          # (ng, g*k, E)
     slot = (torch.gather(seen, 2, pairs) - 1).reshape(ng, g, k)
-    return Routing(xg, top_w, top_e, slot, cap, aux)
+    return Routing(xg, top_w, top_e, slot, cap, aux, me, ce)
 
 
 def moe_ffn(moe: MoE, x: Tensor, cfg: TransformerConfig
             ) -> Tuple[Tensor, Tensor]:
     """The reference's GShard top-k MoE with capacity (``moe_ffn``):
-    x (B, S, d) -> (out (B, S, d) in x's dtype, aux f32 scalar).
+    x (B, S, d) -> (out (B, S, d) in x's dtype, aux f32 scalar): ``route``,
+    then ``moe_experts`` over every expert."""
+    r = route(moe, x, cfg.moe)
+    return moe_experts(r, lambda n: getattr(moe, n), x.shape), r.aux
+
+
+def moe_experts(r: Routing, w: Callable[[str], Tensor], shape,
+                e0: int = 0) -> Tensor:
+    """The dispatch, experts and combine of ``moe_ffn`` for the routing
+    ``r`` of tokens of ``shape`` (B, S, d), restricted to the experts
+    [e0, e0 + E_l) whose weights ``w("w_gate")``, ``w("w_up")`` (E_l, d,
+    f) and ``w("w_down")`` (E_l, f, d) are; a rank of the expert-parallel
+    program passes its own, the one-device model all of them.
 
     The reference dispatches and combines by one-hot einsums over a
     ``(g, E, C)`` slot tensor; here each kept pair's row is gathered into
-    an ``(E, ng * cap, d)`` buffer (zero where a slot is empty), the
+    an ``(E_l, ng * cap, d)`` buffer (zero where a slot is empty), the
     experts run as batched products in x's dtype, and each token adds its
     kept pairs' ``gate.to(x.dtype) * eout`` in f32, choice by choice, then
-    casts to x's dtype.  A pair past its expert's capacity adds nothing:
-    a token that loses every choice gets zeros."""
-    mcfg = cfg.moe
-    b, s, d = x.shape
-    r = route(moe, x, mcfg)
+    casts to x's dtype.  A pair past its expert's capacity, or sent to an
+    expert outside the range, adds nothing: a token that loses every
+    choice gets zeros."""
+    b, s, d = shape
+    xg = r.xg
+    dt, dev = xg.dtype, xg.device
     ng, g, k = r.top_e.shape
-    e, cap, dev = mcfg.n_experts, r.cap, x.device
-    keep = r.slot < cap
+    w_gate = w("w_gate")
+    el, cap = w_gate.shape[0], r.cap
+    keep = (r.slot < cap) & (r.top_e >= e0) & (r.top_e < e0 + el)
     grp = torch.arange(ng, device=dev)[:, None, None]
-    row = (r.top_e * ng + grp) * cap + r.slot        # expert-major rows
+    row = ((r.top_e - e0) * ng + grp) * cap + r.slot   # expert-major rows
     # which token fills each buffer row (ng * g: the zero row past the
     # tokens); the dropped pairs all write one spare entry, cut off after
-    n_rows = e * ng * cap
+    n_rows = el * ng * cap
     src = torch.full((n_rows + 1,), ng * g, dtype=torch.long, device=dev)
     tok = (grp * g + torch.arange(g, device=dev)[None, :, None]).expand(
         ng, g, k)
     src.scatter_(0, torch.where(keep, row, n_rows).reshape(-1),
                  tok.reshape(-1))
-    xz = torch.cat([r.xg.reshape(ng * g, d), x.new_zeros((1, d))])
-    ein = xz[src[:n_rows]].reshape(e, ng * cap, d)
-    hg = torch.bmm(ein, moe.w_gate.to(x.dtype))
-    hu = torch.bmm(ein, moe.w_up.to(x.dtype))
-    eout = torch.bmm(F.silu(hg) * hu, moe.w_down.to(x.dtype))
+    xz = torch.cat([xg.reshape(ng * g, d), xg.new_zeros((1, d))])
+    ein = xz[src[:n_rows]].reshape(el, ng * cap, d)
+    hg = torch.bmm(ein, w_gate.to(dt))
+    hu = torch.bmm(ein, w("w_up").to(dt))
+    eout = torch.bmm(F.silu(hg) * hu, w("w_down").to(dt))
     eout = eout.reshape(n_rows, d)
-    gate = torch.where(keep, r.top_w, 0.0).to(x.dtype).reshape(ng * g, k)
+    gate = torch.where(keep, r.top_w, 0.0).to(dt).reshape(ng * g, k)
     row = torch.where(keep, row, 0).reshape(ng * g, k)
     acc = torch.zeros((ng * g, d), dtype=torch.float32, device=dev)
     for j in range(k):
         acc += gate[:, j, None].float() * eout[row[:, j]].float()
-    out = acc.to(x.dtype)[:b * s].reshape(b, s, d)
-    return out, r.aux
+    return acc.to(dt)[:b * s].reshape(b, s, d)
 
 
 def _ffn(lp: Block, x: Tensor, cfg: TransformerConfig
@@ -495,3 +526,97 @@ def active_param_count(cfg: TransformerConfig) -> int:
     per_layer = attn + ffn + 2 * d
     return cfg.n_layers * per_layer + 2 * cfg.vocab_size * d + d
 
+
+
+# ---------------------------------------------------------------------------
+# Sharding specs (the reference's, by the port's parameter names)
+# ---------------------------------------------------------------------------
+
+def param_specs(cfg: TransformerConfig) -> dict:
+    """Parameter name -> ``P``: weights FSDP-sharded over ``dp_axes`` and
+    tensor-parallel over ``tp_axis``, the routed experts' weights
+    expert-parallel over ``tp_axis``, norms replicated."""
+    dp, tp = cfg.dp_axes, cfg.tp_axis
+    blk = {"ln1": P(None), "ln2": P(None), "wq": P(dp, tp),
+           "wk": P(dp, tp), "wv": P(dp, tp), "wo": P(tp, dp)}
+    if cfg.qkv_bias:
+        blk.update(bq=P(tp), bk=P(tp), bv=P(tp))
+    mlp = {"w_gate": P(dp, tp), "w_up": P(dp, tp), "w_down": P(tp, dp)}
+    if cfg.moe is None:
+        blk.update(mlp)
+    else:
+        blk.update({"moe.router": P(dp, None),
+                    "moe.w_gate": P(tp, dp, None),
+                    "moe.w_up": P(tp, dp, None),
+                    "moe.w_down": P(tp, None, dp)})
+        if cfg.moe.n_shared:
+            blk.update({f"shared_mlp.{k}": v for k, v in mlp.items()})
+    specs = {"embed": P(tp, dp)}
+    for i in range(cfg.n_layers):
+        specs.update({f"blocks.{i}.{k}": v for k, v in blk.items()})
+    specs.update(ln_f=P(None), lm_head=P(dp, tp))
+    return specs
+
+
+def param_shapes(cfg: TransformerConfig) -> dict:
+    """Parameter name -> full shape, in ``param_specs``' order (the
+    shapes ``Transformer`` makes)."""
+    d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    f, v = cfg.d_ff, cfg.vocab_size
+    blk = {"ln1": (d,), "ln2": (d,), "wq": (d, h * dh),
+           "wk": (d, kh * dh), "wv": (d, kh * dh), "wo": (h * dh, d)}
+    if cfg.qkv_bias:
+        blk.update(bq=(h * dh,), bk=(kh * dh,), bv=(kh * dh,))
+    if cfg.moe is None:
+        blk.update(w_gate=(d, f), w_up=(d, f), w_down=(f, d))
+    else:
+        e, fe = cfg.moe.n_experts, cfg.moe.d_ff
+        blk.update({"moe.router": (d, e), "moe.w_gate": (e, d, fe),
+                    "moe.w_up": (e, d, fe), "moe.w_down": (e, fe, d)})
+        if cfg.moe.n_shared:
+            fs = fe * cfg.moe.n_shared
+            blk.update({"shared_mlp.w_gate": (d, fs),
+                        "shared_mlp.w_up": (d, fs),
+                        "shared_mlp.w_down": (fs, d)})
+    shapes = {"embed": (v, d)}
+    for i in range(cfg.n_layers):
+        shapes.update({f"blocks.{i}.{k}": s for k, s in blk.items()})
+    shapes.update(ln_f=(d,), lm_head=(d, v))
+    return shapes
+
+
+def cache_specs(cfg: TransformerConfig, seq_shard: bool = False) -> P:
+    """The KV cache's (L, B, S, KH, dh) layout: batch over dp; the
+    sequence over the model axis when the cache dominates memory
+    (decode_32k / long_500k: the flash-decoding layout), else kv heads
+    over it."""
+    dp, tp = cfg.dp_axes, cfg.tp_axis
+    if seq_shard:
+        return P(None, dp, tp, None, None)
+    return P(None, dp, None, tp, None)
+
+
+def _act_specs(cfg: TransformerConfig) -> dict:
+    """The activations' layouts: the residual (B, S, D) batch over dp and
+    sequence over the model axis (Megatron-SP) when
+    ``seq_shard_activations``; the heads (B, S, H, dh) over the model
+    axis; the MoE dispatch."""
+    dp, tp = cfg.dp_axes, cfg.tp_axis
+    seq = tp if cfg.seq_shard_activations else None
+    return {"resid": P(dp, seq, None), "heads": P(dp, None, tp, None),
+            "moe_disp": P(dp, None, tp, None) if cfg.moe else None}
+
+
+def _constrain(x: Tensor, spec: Optional[P], mesh, shape) -> Tensor:
+    """The reference's sharding constraint, as a check: ``x`` (a local
+    tensor of a rank's program) must have the shard shape that ``spec``
+    gives the global ``shape`` on ``mesh``; raises ValueError if not."""
+    if spec is None or mesh is None:
+        return x
+    want = shard_shape(shape, P(*(a if a is None or isinstance(a, str)
+                                  else mesh.present(a) for a in spec)),
+                       mesh)
+    if tuple(x.shape) != want:
+        raise ValueError(f"local shape {tuple(x.shape)} is not the shard "
+                         f"{want} of {tuple(shape)} by {spec}")
+    return x

@@ -97,7 +97,7 @@ def clip_by_global_norm(grads: Mapping[str, Tensor], max_norm: float
 
 @torch.no_grad()
 def apply_update(params: Params, grads: Mapping[str, Tensor],
-                 state: AdamWState, cfg: AdamWConfig
+                 state: AdamWState, cfg: AdamWConfig, norm: Tensor = None
                  ) -> Tuple[Params, AdamWState, Dict[str, Tensor]]:
     """One AdamW update in place; returns (params, state, {"grad_norm",
     "lr"}).  As the reference: the gradients clipped by their global
@@ -106,9 +106,12 @@ def apply_update(params: Params, grads: Mapping[str, Tensor],
     learning rate ``schedule(step)`` and the bias corrections ``1 -
     b**step`` in f32 at the new step; ``delta = m_hat / (sqrt(v_hat) +
     eps) + wd * p`` for every parameter, norms and embeddings included;
-    ``p - lr * delta`` computed in f32 and cast to p's dtype."""
+    ``p - lr * delta`` computed in f32 and cast to p's dtype.  ``norm``
+    replaces the gradients' global norm where they are one rank's shards
+    (``steps.sharded_train_step`` sums it over the mesh)."""
     p_named = named(params)
-    norm = global_norm(grads)
+    if norm is None:
+        norm = global_norm(grads)
     scale = _clip_scale(norm, cfg.clip_norm)
     state.step.add_(1)
     stepf = state.step.float()

@@ -9,8 +9,9 @@ stand-in leaves that share the parameters' storage, or hold their casts:
 ``swapped`` puts them in the model's place for the forward and the
 backward (a checkpointed layer recomputes inside the backward, so it
 must find them there too), and the f32 masters are written only by the
-optimizer.  ``jit_train_step`` (explicit shardings) waits for the
-sharding specs.
+optimizer.  ``sharded_train_step`` is one rank's step on a mesh: its
+parameters and optimizer state are its shards by a spec (the
+counterpart of the reference's ``jit_train_step``).
 """
 from __future__ import annotations
 
@@ -198,3 +199,77 @@ def make_serve_step(apply_fn: Callable[..., Any]):
         with torch.no_grad():
             return apply_fn(model, *inputs)
     return serve
+
+
+def sharded_global_norm(grads: Mapping[str, Tensor], specs, mesh
+                        ) -> Tensor:
+    """The global norm of gradients that are one rank's shards: each
+    leaf's sum of squares summed over the axes its spec splits it over
+    (a replicated leaf once), the leaves with the same axes in one
+    all-reduce."""
+    groups: Dict[Tuple[str, ...], Tensor] = {}
+    for name, g in grads.items():
+        split = set(specs[name].all_axes())
+        axes = tuple(a for a in mesh.axis_names if a in split)
+        sq = torch.sum(torch.square(g.float()))
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+    total = sum(mesh.psum(v.reshape(1), axes)[0]
+                for axes, v in groups.items())
+    return torch.sqrt(total)
+
+
+def sharded_train_step(loss_fn: Callable[[Dict[str, Tensor], Any], Tensor],
+                       opt_cfg: opt.AdamWConfig, mesh, specs,
+                       microbatches: int = 1, cast_dtype=None):
+    """One rank's train step on ``mesh``: the counterpart of the
+    reference's ``jit_train_step`` (params and optimizer state sharded by
+    ``specs``, the batch by its rows), written per rank.  Returns
+    ``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
+    ``params`` the rank's shards by name (updated in place), ``opt_state``
+    their AdamW moments, ``batch`` the rank's rows.
+    ``loss_fn(leaves, batch)`` is the rank's program: it gathers what it
+    needs through the mesh (whose collectives carry the gradients back to
+    the shards) and returns the global loss, the same on every rank.  As
+    ``make_train_step``: the floating shards cast once to ``cast_dtype``
+    (before any gather, so the gathers move the cast), microbatches split
+    from the rank's rows with f32 accumulation, then AdamW on the local
+    shards with the global norm summed over the mesh
+    (``sharded_global_norm``)."""
+    def step(params: Dict[str, Tensor], opt_state: opt.AdamWState, batch):
+        leaves = {}
+        for name, p in params.items():
+            t = p.detach()
+            if cast_dtype is not None and t.is_floating_point():
+                t = t.to(cast_dtype)
+            leaves[name] = t.requires_grad_(t.is_floating_point())
+        names = [n for n, t in leaves.items() if t.requires_grad]
+        n = microbatches
+        mb = next(iter(_arrays(batch))).shape[0] // n
+        loss = torch.zeros((), device=opt_state.step.device)
+        grads = {k: torch.zeros(params[k].shape, dtype=torch.float32,
+                                device=params[k].device) for k in names}
+        for i in range(n):
+            part = batch if n == 1 else _rows(batch, slice(i * mb,
+                                                           (i + 1) * mb))
+            with torch.enable_grad():
+                li = loss_fn(leaves, part)
+                gs = torch.autograd.grad(li, [leaves[k] for k in names],
+                                         allow_unused=True)
+            loss = loss + li.detach()
+            for k, g in zip(names, gs):
+                if g is not None:
+                    grads[k].add_(g)
+            del gs
+        if n > 1:
+            loss = loss / n
+            for t in grads.values():
+                t.div_(n)
+        del leaves
+        norm = sharded_global_norm(grads, specs, mesh)
+        with torch.profiler.record_function(UPDATE_RANGE):
+            _, opt_state, info = opt.apply_update(
+                {k: params[k] for k in names}, grads, opt_state, opt_cfg,
+                norm=norm)
+        return params, opt_state, {"loss": loss, **info}
+
+    return step

@@ -7,7 +7,9 @@ kernels; the flash-attention tests at the end hold that kernel against
 its plain version and check that ``Transformer.prefill`` on the card
 launches it once per layer; the training tests hold one train step of
 each smoke config against the CPU's, an asynchronous checkpoint of card
-tensors, and the compressed step on a one-rank NCCL group.  The file
+tensors, and the compressed step on a one-rank NCCL group; the last
+tests hold each kernel wrapper's allocations on ``meta`` tensors (the
+dry-run's count) against the same call's on the card.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine
 that has only PyTorch: from the repository root,
 
@@ -1452,3 +1454,92 @@ def test_compressed_step_on_one_nccl_rank_matches_one_gloo_rank(
         tie = ((q - q.floor()) - 0.5).abs() < 1e-3
         g[n] = torch.where(tie, 0.0, t)     # marked as near zero
     _hold_params_near(card, cpu, g, float(mc["lr"]))
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers on meta tensors (the dry-run's count)
+# ---------------------------------------------------------------------------
+
+def _meta_and_card_bytes(dev, fn, args):
+    """(the most bytes the call's tensors hold at once on meta, on the
+    card), each storage rounded to the caching allocator's 512 bytes,
+    after a warm call on the card (workspaces made once); the card's
+    ``max_memory_allocated`` growth must hold at least as much (it also
+    holds what a library call inside an op allocates)."""
+    from repro_torch.kernels import build
+    from repro_torch.roofline.count import LiveBytes
+
+    def peak(ts):
+        live = LiveBytes([a for a in ts if isinstance(a, torch.Tensor)],
+                         granule=512)
+        with build.card_route_on_meta(), live:
+            out = fn(*ts)
+        torch.cuda.synchronize()
+        del out
+        return live.peak
+
+    def to(t, d):
+        return t.to(d) if isinstance(t, torch.Tensor) else t
+    meta = peak([to(a, "meta") for a in args])
+    card = [to(a, dev) for a in args]
+    fn(*card)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = peak(card)
+    assert torch.cuda.max_memory_allocated() - before >= got
+    return meta, got
+
+
+@pytest.mark.parametrize("q,n", [(1, 5000), (64, 20000)])
+def test_meta_scan_topk_allocates_as_the_card(dev, q, n):
+    g = torch.Generator().manual_seed(0)
+    xs, qs = torch.randn(n, 64, generator=g), torch.randn(q, 64, generator=g)
+    got, want = _meta_and_card_bytes(
+        dev, lambda a, b: st.scan_topk(a, b, k_pad=128), (qs, xs))
+    assert got == want
+
+
+def test_meta_kmeans_assign_allocates_as_the_card(dev):
+    g = torch.Generator().manual_seed(1)
+    xs, c = torch.randn(30000, 128, generator=g), torch.randn(
+        1000, 128, generator=g)
+    aux = (c * c).sum(1)
+    got, want = _meta_and_card_bytes(dev, ka.kmeans_assign, (xs, c, aux))
+    assert got == want
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_meta_indexed_scans_allocate_as_the_card(dev, q8):
+    g = torch.Generator().manual_seed(2)
+    p, s, d, b, u = 32, 256, 128, 48, 12
+    valid = torch.ones(p, s, dtype=torch.bool)
+    sel = torch.randperm(p, generator=g)[:u].to(torch.int32)
+    qmask = torch.rand(b, u, generator=g) < 0.5
+    if not q8:
+        data, q = torch.randn(p, s, d, generator=g), torch.randn(
+            b, d, generator=g)
+        got, want = _meta_and_card_bytes(
+            dev, lambda *a: sti.scan_topk_indexed(*a, k_pad=128),
+            (q, data, valid, sel, qmask))
+    else:
+        codes = torch.randint(-127, 128, (p, s, d), generator=g,
+                              dtype=torch.int8)
+        args = (torch.randint(-127, 128, (b, d), generator=g,
+                              dtype=torch.int8),
+                torch.rand(b, generator=g), codes, torch.rand(p, s, generator=g),
+                torch.rand(p, s, generator=g), torch.randn(b, u, generator=g),
+                valid, sel, qmask)
+        got, want = _meta_and_card_bytes(
+            dev, lambda *a: sti.scan_topk_indexed_q8(*a, k_pad=128), args)
+    assert got == want
+
+
+def test_meta_flash_attention_allocates_as_the_card(dev):
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 1000, 8, 128, generator=g).bfloat16()
+    k = torch.randn(2, 1000, 2, 128, generator=g).bfloat16()
+    got, want = _meta_and_card_bytes(
+        dev, lambda a, b, c: fa.flash_attention(a, b, c, causal=True),
+        (q, k, k.clone()))
+    assert got == want
