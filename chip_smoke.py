@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py [--n 1000000] [--batch 1024] [--seed 0]
                           [--wiki-n 1000000] [--months 12]
-                          [--serve-months 12]
+                          [--serve-months 6]
 
-With no arguments it runs eleven paths, each with the kernels' launch
+With no arguments it runs twelve paths, each with the kernels' launch
 counts set to 0 just before it and read just after (path 6 runs after
-the kernel checks and before path 3, paths 7-11 last, in that order):
+the kernel checks and before path 3, paths 7-12 last, in that order):
 
 1. The main path, the SIFT1M-shaped cell: 1,000,000 clustered synthetic
    vectors of d=128 (L2; a mixture of 8192 Gaussian clusters with sizes
@@ -182,6 +182,26 @@ the kernel checks and before path 3, paths 7-11 last, in that order):
    GB)), ms a step and the counted FLOPs' TFLOP/s; gates finite outputs
    and holds each kernel a cell launched against its plain version on
    the rank's own operands.
+12. The port's examples (``repro_torch.examples``): (a) quickstart,
+   dynamic_workload, retrieval_serving and train_lm at their own
+   defaults (the JAX package's sizes), the quickstart's APS recall@10
+   gated at 0.85 before and after maintenance, every number finite; (b)
+   the quickstart at path 1's SIFT1M shape (1,000,000 x 128, 8192
+   clusters): build seconds, us a query, nprobe, maintenance splits and
+   merges; (c) on that index 150 per-query searches at tau_rho 0 with
+   the table (APS-R) and with ``exact_beta_fn`` (APS-RP, paper Table 2),
+   APS-RP's recall gated within 0.02 of APS-R's; (d) the indexed scans
+   at text-embedding widths: 200,000 clustered rows of d = 3,072 drawn
+   on the card (path 1's mixture in 128 dimensions, projected),
+   ``QuakeIndex.build``, ``search_batch`` of 256 queries at
+   k = 100 (target 0.9, then ``nprobe=32, rounds=1``) in f32, bf16 and
+   int8 storage with recall against the exact top-100, the f32, bf16 and
+   q8 kernels held against their plain versions on the first 32 queries'
+   operands of the APS plan (q8 bit-equal) and timed on the whole batch
+   beside their bounds, then a q8 scan at d = 8,192 (seeded codes)
+   held bit-equal and timed; (e) k-means++ seeding on 100,000 x 128 at k
+   = 316, its objective after 10 Lloyd steps gated within 1.05x the
+   random seeding's.  The four Quake kernels must launch on this path.
 
 It then holds each CUDA kernel against its plain PyTorch version at the
 shapes the paths gave it, times both and a one-library-call yardstick,
@@ -348,6 +368,29 @@ CELL_ENGINE = {"scan_impl": "union_cuda"}
 CELL_MEM_REL, CELL_MEM_ABS = 0.10, 0.5e9
 CELL_PLAIN_Q = 16
 DRYRUN_JOBS, DRYRUN_TIMEOUT = 4, 600
+# the port's examples (path 12): (a) the four at their own defaults, the
+# quickstart's APS recall at least APS_RECALL_MIN before and after
+# maintenance; (b) the quickstart at path 1's SIFT1M shape (EX_SIFT);
+# (c) on (b)'s index EX_APS_QUERIES per-query searches at tau_rho 0 with
+# the table (APS-R) and with the exact beta function (APS-RP), APS-RP's
+# recall within EX_APS_RP_GAP of APS-R's; (d) the indexed scans past the
+# widths that held the tile's queries whole: WIDE_N clustered rows (the
+# mixture of path 1 with WIDE_CLUSTERS clusters, drawn in WIDE_LATENT
+# dimensions and projected) of width WIDE_D through
+# QuakeIndex.build and search_batch of WIDE_B queries at WIDE_K, the
+# kernels held against their plain versions on the first WIDE_HOLD_Q
+# queries' plan, and a q8 scan of WIDE_Q8 (P, S, d, B, U) codes; (e)
+# k-means++ on KPP (n, d, k), its objective after 10 Lloyd steps within
+# KPP_SLACK of the random seeding's.  The f32 and bf16 kernels sum each
+# product as two sequential chains of d / 2 terms, whose f32 rounding grows
+# like sqrt(d): TOL_REL (set at d = 128) is scaled by sqrt(d / 128) there
+# (4.9e-5 at d = 3,072)
+EX_SIFT = dict(n=1_000_000, dim=128, n_clusters=8192)
+EX_APS_QUERIES, EX_APS_RP_GAP = 150, 0.02
+WIDE_N, WIDE_D, WIDE_CLUSTERS, WIDE_LATENT = 200_000, 3072, 1638, 128
+WIDE_B, WIDE_K, WIDE_HOLD_Q = 256, 100, 32
+WIDE_Q8 = (64, 256, 8192, 256, 32)
+KPP, KPP_SLACK = (100_000, 128, 316), 1.05
 # kernel groups of the (b) step's profile: f32 GEMMs (the attention's
 # scores and PV products of f32 copies: CUDA-core sgemm), the other GEMMs
 # (bf16 on the tensor cores), elementwise and copy kernels, reductions
@@ -377,7 +420,9 @@ def parse_args():
     ap.add_argument("--months", type=int, default=12)
     ap.add_argument("--month-queries", type=int, default=512,
                     help="per-query searches per month (access statistics)")
-    ap.add_argument("--serve-months", type=int, default=12,
+    # 6 of the generator's 12 months keep the whole run, path 12
+    # included, well inside its time limit on a slow host
+    ap.add_argument("--serve-months", type=int, default=6,
                     help="months of the workload the serving path replays")
     return ap.parse_args()
 
@@ -528,15 +573,7 @@ def profile_call(fn, what: str = "search_batch", match: str = "",
     substrings its name holds ("other": none).  The trace goes to
     ``out_dir`` (none when it is None)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
+    prof, wall_ms = traced(fn)
     rows, spans = [], {r: 0.0 for r in ranges}
     for e in prof.key_averages():
         # kernels only: the ops that launch them repeat their time, and a
@@ -635,23 +672,43 @@ def worklist(sti, qmask, sel_l, nrows) -> dict:
             "reads_per_partition": kernel_rows / max(rows_read, 1)}
 
 
-def count_kernels(fn) -> dict:
-    """Device kernels and memsets that one warm call of ``fn`` launches,
-    from torch.profiler's device events."""
+def traced(fn, calls: int = 1, tries: int = 3):
+    """(torch.profiler trace of ``calls`` warm calls of ``fn``, the wall
+    ms they took).  A trace that holds no device event at all was lost
+    by the profiler, not run without the card (every ``fn`` here launches
+    work on it): CUPTI once delivered none for one short call late in a
+    long run on the H100.  Such a trace is taken again, up to ``tries``
+    times in all; the last one is returned whatever it holds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        if any(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events()):
+            break
+    return prof, wall_ms
+
+
+def count_kernels(fn, calls: int = 4) -> dict:
+    """Device kernels and memsets that one warm call of ``fn`` launches,
+    from torch.profiler's device events over ``calls`` calls (each count
+    is the total over the calls divided by their number)."""
+    import torch
+    prof, _ = traced(fn, calls)
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     memsets = [n for n in names if "memset" in n.lower()]
     kernels = [n for n in names if n not in memsets
                and "memcpy" not in n.lower()]
-    return {"kernels": len(kernels), "memsets": len(memsets),
+    return {"kernels": len(kernels) / calls, "memsets": len(memsets) / calls,
             "names": sorted(set(k[:60] for k in kernels))}
 
 
@@ -1397,6 +1454,17 @@ def main() -> int:
     for row in kernels:      # each kernel's launches on the cells path
         row["cells_launches"] = record["cells"]["launches"][
             row["name"].split("[")[0]]
+    # ---- path 12: the examples, the scans at embedding widths, k-means++ --
+    record["examples"] = run_examples(args, dev, start_path, end_path)
+    print(f"examples path took {record['examples']['path_s']:.1f} s")
+    wide = record["examples"]["wide"]
+    for row in kernels:      # each kernel's launches on the examples path
+        base = row["name"].split("[")[0]
+        row["examples_launches"] = record["examples"]["launches"][base]
+        if row["name"] == "scan_topk_indexed":
+            row["wide"] = {"f32": wide["f32"], "bf16": wide["bf16"]}
+        elif row["name"] == "scan_topk_indexed_q8":
+            row["wide"] = {"d3072": wide["q8"], "d8192": wide["q8_8192"]}
     checks = record["engine"]["engine_check"]
     for row in kernels:      # each kernel's launches on the engine path
         row["engine_launches"] = path_launches["engine"][
@@ -4886,6 +4954,385 @@ def run_cells(args, dev, start_path, end_path, counters) -> dict:
     out["dryrun"] = {"pairs": len(dry), "no_fit": no_fit}
     gc.collect()
     torch.cuda.empty_cache()
+    out["path_s"] = time.perf_counter() - t_path
+    return out
+
+
+# ---------------------------------------------------------------------------
+# path 12: the port's examples, the indexed scans at embedding widths,
+# k-means++
+# ---------------------------------------------------------------------------
+
+def finite_numbers(name, res) -> None:
+    """Every number of an example's result (nested dicts and lists) is
+    finite."""
+    import math
+    vals = [res]
+    while vals:
+        v = vals.pop()
+        if isinstance(v, dict):
+            vals.extend(v.values())
+        elif isinstance(v, (list, tuple)):
+            vals.extend(v)
+        elif isinstance(v, float) and not math.isfinite(v):
+            fail(f"{name}: a non-finite number in its result")
+
+
+def run_examples_default(dev) -> dict:
+    """Path 12 (a): the four examples' ``run()`` at their own defaults."""
+    from repro_torch.examples import (dynamic_workload, quickstart,
+                                      retrieval_serving, train_lm)
+    out = {}
+    t = time.perf_counter()
+    qs = quickstart.run(device=dev)
+    del qs["index"], qs["dataset"]
+    finite_numbers("quickstart", qs)
+    for key in ("recall", "recall_after"):
+        if qs[key] < APS_RECALL_MIN:
+            fail(f"quickstart: {key} {qs[key]:.3f} < {APS_RECALL_MIN}")
+    out["quickstart"] = dict(qs, wall_s=time.perf_counter() - t)
+    t = time.perf_counter()
+    dyn = dynamic_workload.run(device=dev)
+    finite_numbers("dynamic_workload", dyn)
+    out["dynamic_workload"] = dict(dyn, wall_s=time.perf_counter() - t)
+    t = time.perf_counter()
+    ret = retrieval_serving.run(device=dev)
+    finite_numbers("retrieval_serving", ret)
+    out["retrieval_serving"] = dict(ret, wall_s=time.perf_counter() - t)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    try:
+        tr = train_lm.run(train_lm.DEFAULT_ARGV + ["--ckpt-dir", ckpt],
+                          device=dev)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    finite_numbers("train_lm", tr)
+    if tr["steps"] != 60 or tr["restarts"]:
+        fail(f"train_lm: {tr['steps']} steps, {tr['restarts']} restarts")
+    out["train_lm"] = tr
+    return out
+
+
+def run_aps_variants(idx, ds, dev, seed) -> dict:
+    """Path 12 (c): per-query ``search`` at tau_rho 0 on the quickstart's
+    index, APS-R (the table) and APS-RP (``exact_beta_fn``)."""
+    import numpy as np
+    import dataclasses
+    from repro_torch.core import geometry
+    from repro_torch.data import datasets
+    q = datasets.queries_near(ds, EX_APS_QUERIES, seed=seed + 7)
+    gt = ds.ground_truth(q, 10, device=dev)
+    config, table = idx.config, idx._beta_table
+    idx.config = dataclasses.replace(config, tau_rho=0.0)
+    out = {}
+    try:
+        for name, tbl in (("APS-R", table),
+                          ("APS-RP", geometry.exact_beta_fn(
+                              idx.geometry_dim))):
+            idx._beta_table = tbl
+            t = time.perf_counter()
+            rs = [idx.search(q[i], 10, recall_target=0.9,
+                             record_stats=False) for i in range(len(q))]
+            us = (time.perf_counter() - t) / len(q) * 1e6
+            out[name] = {
+                "recall": recall_at(np.stack([np.pad(
+                    r.ids, (0, 10 - len(r.ids)), constant_values=-1)
+                    for r in rs]), gt),
+                "us_per_query": us,
+                "nprobe": float(np.mean([r.nprobe[0] for r in rs]))}
+            print(f"quickstart {name} (tau_rho 0): recall@10 "
+                  f"{out[name]['recall']:.4f}, {us:.0f} us a query, mean "
+                  f"nprobe {out[name]['nprobe']:.2f}")
+    finally:
+        idx.config, idx._beta_table = config, table
+    gap = out["APS-R"]["recall"] - out["APS-RP"]["recall"]
+    if abs(gap) > EX_APS_RP_GAP:
+        fail(f"APS-RP recall {out['APS-RP']['recall']:.4f} is not within "
+             f"{EX_APS_RP_GAP} of APS-R's {out['APS-R']['recall']:.4f}")
+    return out
+
+
+def wide_embeddings(n, d, n_clusters, power, seed, dev):
+    """(n, d) f32 rows on ``dev`` with the structure of path 1's mixture
+    (``datasets.clustered``: centres of scale 6, cluster sizes
+    proportional to i^-power, spreads 0.5-1.5) drawn in WIDE_LATENT
+    dimensions and mapped to ``d`` by a seeded Gaussian projection, plus
+    noise of 0.05 a coordinate: embeddings of a low intrinsic dimension,
+    as real ones are.  (An isotropic mixture drawn in d = 3,072 itself
+    makes Lloyd's centroids of mixed clusters, whose small norms pull in
+    every far point: one partition took 84,000 of 200,000 rows.)"""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lat = WIDE_LATENT
+    centers = torch.randn((n_clusters, lat), generator=g, device=dev) * 6.0
+    w = 1.0 / torch.arange(1, n_clusters + 1, device=dev,
+                           dtype=torch.float64) ** power
+    cid = torch.multinomial(w / w.sum(), n, replacement=True, generator=g)
+    scale = 0.5 + torch.rand((n_clusters,), generator=g, device=dev)
+    z = centers[cid] + torch.randn((n, lat), generator=g, device=dev) \
+        * scale[cid, None]
+    proj = torch.randn((lat, d), generator=g, device=dev) / lat ** 0.5
+    x = z @ proj
+    x += 0.05 * torch.randn((n, d), generator=g, device=dev)
+    return x
+
+
+def sub_plan(sel, qmask, nq):
+    """The first ``nq`` queries' part of a plan: their rows of ``qmask``
+    and the union slots some of them select."""
+    import torch
+    used = torch.nonzero(qmask[:nq].any(0)).reshape(-1)
+    return (sel.index_select(0, used).contiguous(),
+            qmask[:nq].index_select(1, used).contiguous())
+
+
+def hold_wide_f32(name, sti, data, valid, sel, qmask, qc, kp) -> dict:
+    """The f32/bf16 indexed scan held against its plain version on the
+    first WIDE_HOLD_Q queries' part of the plan, then timed at the whole
+    batch beside its bound."""
+    import torch
+    from repro_torch.kernels import build
+    b, d = qc.shape
+    sel_h, qmask_h = sub_plan(sel, qmask, WIDE_HOLD_Q)
+    qh = qc[:WIDE_HOLD_Q].contiguous()
+    dk, ik = sti.scan_topk_indexed_cuda(qh, data, valid, sel_h, qmask_h,
+                                        k_pad=kp)
+    dp, ip_ = sti.scan_topk_indexed_plain(qh, data, valid, sel_h, qmask_h,
+                                          k_pad=kp)
+    err, tol = compare_topk(name, dk, ik, dp, ip_,
+                            (TOL_REL * (d / 128) ** 0.5, TOL_ABS))
+    del dk, ik, dp, ip_
+
+    def kern():
+        return sti.scan_topk_indexed_cuda(qc, data, valid, sel, qmask,
+                                          k_pad=kp)
+    ms = cuda_ms(kern)
+    nrows = sti.live_rows(valid)
+    sel_l = sel.long()
+    rows_read = int(nrows[torch.unique(sel_l)].sum())
+    active = int((qmask.sum(dim=0).long() * nrows[sel_l].long()).sum())
+    u = int(sel.shape[0])
+    elem = data.element_size()
+    bound_ms, bound_by = build.bound(
+        rows_read * d * elem + b * d * elem + 2 * b * kp * 4 + b * u
+        + rows_read, 2.0 * active * d, build.F32_FLOPS_PER_S)
+    where = sti._placement("bf16" if elem == 2 else "f32", d, kp,
+                           torch.cuda.current_device())
+    row = {"d": d, "B": b, "U": u, "S": int(data.shape[1]), "k_pad": kp,
+           "max_abs_err": err, "tol": tol, "ms": ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "rows_read": rows_read,
+           "held_U": int(sel_h.shape[0]), "placement": where}
+    print(f"{name}: err {err:.3g} (tol {tol:.3g}), {ms:.4f} ms at B {b}, "
+          f"U {u}, S {row['S']}, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"placement {where}")
+    return row
+
+
+def hold_wide_q8(name, sti, q_dev, codes, scales, cents, valid, sel, qmask,
+                 kp) -> dict:
+    """The q8 scan bit-equal to its plain version on the first
+    WIDE_HOLD_Q queries' part of the plan, then timed at the whole batch
+    beside its bound."""
+    import torch
+    from repro_torch.kernels import build, ref
+    b, d = q_dev.shape
+    sel_h, qmask_h = sub_plan(sel, qmask, WIDE_HOLD_Q)
+    ops_h = ref.q8_scan_operands(q_dev[:WIDE_HOLD_Q], codes, scales, valid,
+                                 sel_h, "l2", cents)
+    part = (*ops_h[:2], codes, scales, *ops_h[2:], valid, sel_h, qmask_h)
+    dk, ik = sti.scan_topk_indexed_q8_cuda(*part, k_pad=kp)
+    dp, ip_ = sti.scan_topk_indexed_q8_plain(*part, k_pad=kp)
+    hold_bit_equal(name, dk, ik, dp, ip_)
+    del dk, ik, dp, ip_, part, ops_h
+    ops_ = ref.q8_scan_operands(q_dev, codes, scales, valid, sel, "l2",
+                                cents)
+    full = (*ops_[:2], codes, scales, *ops_[2:], valid, sel, qmask)
+
+    def kern():
+        return sti.scan_topk_indexed_q8_cuda(*full, k_pad=kp)
+    ms = cuda_ms(kern)
+    nrows = sti.live_rows(valid)
+    sel_l = sel.long()
+    rows = int(nrows[torch.unique(sel_l)].sum())
+    active = int((qmask.sum(dim=0).long() * nrows[sel_l].long()).sum())
+    u = int(sel.shape[0])
+    bound_ms, bound_by = build.bound(
+        rows * (d + 4 + 4 + 1) + b * (d + 4) + b * u * (4 + 1)
+        + 2 * b * kp * 4, 2.0 * active * d, build.INT8_OPS_PER_S)
+    where = sti._placement("q8", d, kp, torch.cuda.current_device())
+    row = {"d": d, "B": b, "U": u, "S": int(codes.shape[1]), "k_pad": kp,
+           "max_abs_err": 0.0, "bit_equal": True, "ms": ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "rows_read": rows,
+           "held_U": int(sel_h.shape[0]), "placement": where}
+    print(f"{name}: bit-equal, {ms:.4f} ms at B {b}, U {u}, S {row['S']}, "
+          f"bound {bound_ms:.4f} ms ({bound_by}), placement {where}")
+    return row
+
+
+def run_wide(args, dev) -> dict:
+    """Path 12 (d): the indexed scans at embedding widths past those that
+    held the tile's queries whole.  Each storage's executor is dropped
+    after its searches and its kernel's check, so one snapshot at a time
+    is on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.core import QuakeIndex, get_executor, plan_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import scan_topk_indexed as sti
+    out = {"card": card_line()}
+    t = time.perf_counter()
+    x_dev = wide_embeddings(WIDE_N, WIDE_D, WIDE_CLUSTERS, args.power,
+                            args.seed, dev)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    pick = torch.randint(0, WIDE_N, (WIDE_B,), generator=g, device=dev)
+    q_t = x_dev[pick] + 0.1 * torch.randn((WIDE_B, WIDE_D), generator=g,
+                                          device=dev)
+    x2 = (x_dev * x_dev).sum(1)
+    gt = torch.topk(x2[None, :] - 2.0 * (q_t @ x_dev.T), WIDE_K, dim=1,
+                    largest=False).indices.cpu().numpy()
+    x = x_dev.cpu().numpy()
+    q = q_t.cpu().numpy()
+    del x_dev, x2
+    out["data_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    idx = QuakeIndex.build(x, device=dev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t
+    del x
+    sizes = idx.levels[0].sizes()
+    out["partitions"], out["largest"] = len(sizes), int(sizes.max())
+    print(f"wide: {WIDE_N} x {WIDE_D} rows built into {len(sizes)} "
+          f"partitions (largest {int(sizes.max())}) in "
+          f"{out['build_s']:.1f} s (data {out['data_s']:.1f} s)")
+    plan = plan_batch(idx, q, WIDE_K, recall_target=0.9)
+    sel = plan.sel_dev.to(torch.int32).contiguous()
+    qmask = plan.qmask_dev.contiguous()
+    kp = ops._next_pow2(WIDE_K)
+    runs = {}
+    for storage in ("f32", "bf16", "int8"):
+        for name, kw in (("aps", dict(recall_target=0.9)),
+                         ("nprobe32", dict(nprobe=32, rounds=1))):
+            for _ in ("cold", "warm"):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = idx.search_batch(q, WIDE_K, storage_dtype=storage, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            if not np.isfinite(r.dists[r.ids >= 0]).all() \
+                    or r.ids.shape != (WIDE_B, WIDE_K):
+                fail(f"wide {storage} {name}: bad result")
+            rec = recall_at(r.ids, gt)
+            runs[f"{storage}_{name}"] = {
+                "recall": rec, "warm_s": wall, "rounds": int(r.rounds),
+                "mean_nprobe": float(r.nprobe.mean())}
+            print(f"wide search_batch {storage} {name}: recall@{WIDE_K} "
+                  f"{rec:.4f}, warm {wall * 1e3:.1f} ms, rounds {r.rounds}, "
+                  f"mean nprobe {r.nprobe.mean():.2f}")
+        # the kernel on the path's own operands: the batch's APS plan
+        ex = get_executor(idx, storage)
+        snap = ex.snapshot()
+        if storage == "int8":
+            out["q8"] = hold_wide_q8(
+                f"scan_topk_indexed_q8 d={WIDE_D}", sti, q_t, snap.data,
+                snap.scales, snap.centroids, ex._valid, sel, qmask,
+                ops._next_pow2(2 * WIDE_K))
+        else:
+            out[storage] = hold_wide_f32(
+                f"scan_topk_indexed {storage} d={WIDE_D}", sti, snap.data,
+                ex._valid, sel, qmask, q_t.to(snap.data.dtype), kp)
+        del ex, snap
+        idx._batch_executors.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["runs"] = runs
+    del idx, plan
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the q8 scan at d = 8,192 on seeded codes
+    p, s, d, b, u = WIDE_Q8
+    g = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    cents = torch.randn((p, d), generator=g, device=dev) * 4
+    codes = torch.randint(-127, 128, (p, s, d), generator=g, device=dev,
+                          dtype=torch.int8)
+    scales = 0.01 + 0.02 * torch.rand((p, s), generator=g, device=dev)
+    valid = torch.rand((p, s), generator=g, device=dev) < 0.9
+    sel = torch.randperm(p, generator=g, device=dev)[:u].to(torch.int32)
+    qmask = torch.rand((b, u), generator=g, device=dev) < 0.5
+    q8q = cents[sel[torch.randint(0, u, (b,), generator=g,
+                                  device=dev)].long()] \
+        + torch.randn((b, d), generator=g, device=dev)
+    out["q8_8192"] = hold_wide_q8(f"scan_topk_indexed_q8 d={d}", sti, q8q,
+                                  codes, scales, cents, valid, sel, qmask,
+                                  ops._next_pow2(2 * WIDE_K))
+    return out
+
+
+def run_kmeanspp(args, dev) -> dict:
+    """Path 12 (e): k-means++ seeding (host) and Lloyd steps on the card,
+    against the random seeding."""
+    import numpy as np
+    import torch
+    from repro_torch.core import kmeans
+    from repro_torch.data import datasets
+    n, d, k = KPP
+    x = datasets.clustered(n, d, n_clusters=10 * k, power=args.power,
+                           seed=args.seed + 3).vectors
+    t = time.perf_counter()
+    kmeans._kmeanspp_init(x, k, np.random.default_rng(args.seed))
+    out = {"seeding_s": time.perf_counter() - t}
+    x_dev = torch.as_tensor(x, device=dev, dtype=torch.float64)
+    for init in ("pp", "random"):
+        t = time.perf_counter()
+        c, a = kmeans.kmeans(x, k, iters=10, seed=args.seed, init=init,
+                             device=dev)
+        wall = time.perf_counter() - t
+        c_dev = torch.as_tensor(c, device=dev, dtype=torch.float64)
+        obj = float(((x_dev - c_dev[torch.as_tensor(a, device=dev).long()])
+                     ** 2).sum())
+        out[init] = {"objective": obj, "wall_s": wall}
+    ratio = out["pp"]["objective"] / out["random"]["objective"]
+    out["ratio"] = ratio
+    print(f"k-means++ on {n} x {d}, k {k}: seeding {out['seeding_s']:.2f} s "
+          f"(host), objective after 10 Lloyd steps {out['pp']['objective']:.6g}"
+          f" against random seeding's {out['random']['objective']:.6g} "
+          f"(ratio {ratio:.4f})")
+    if ratio > KPP_SLACK:
+        fail(f"k-means++ objective {ratio:.4f}x the random seeding's")
+    return out
+
+
+def run_examples(args, dev, start_path, end_path) -> dict:
+    """Path 12: (a) the four examples at their defaults, (b) the
+    quickstart at the SIFT1M shape, (c) APS-R against APS-RP on its
+    index, (d) the indexed scans at widths past the whole-query layout,
+    (e) k-means++."""
+    import torch
+    from repro_torch.examples import quickstart
+    t_path = time.perf_counter()
+    out = {"card": card_line(), "part_s": {}}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        res = fn()
+        out["part_s"][name] = time.perf_counter() - t
+        print(f"examples ({name}) took {out['part_s'][name]:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+    start_path()
+    out["defaults"] = part("a", lambda: run_examples_default(dev))
+    qs = part("b", lambda: quickstart.run(power=args.power, device=dev,
+                                          **EX_SIFT))
+    finite_numbers("quickstart at the SIFT1M shape", qs)
+    idx, ds = qs.pop("index"), qs.pop("dataset")
+    out["sift"] = qs
+    out["aps_variants"] = part("c", lambda: run_aps_variants(
+        idx, ds, dev, args.seed))
+    del idx, ds
+    out["wide"] = part("d", lambda: run_wide(args, dev))
+    out["kmeanspp"] = part("e", lambda: run_kmeanspp(args, dev))
+    out["launches"] = end_path("examples", (
+        "scan_topk_indexed", "scan_topk", "kmeans_assign",
+        "scan_topk_indexed_q8"))
     out["path_s"] = time.perf_counter() - t_path
     return out
 

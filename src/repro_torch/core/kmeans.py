@@ -64,18 +64,41 @@ def _lloyd(xs: Tensor, init_c: Tensor, k: int, iters: int
 
 
 def kmeans(x: np.ndarray, k: int, iters: int = 10, seed: int = 0,
-           device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+           init: str = "random", device="cuda"
+           ) -> Tuple[np.ndarray, np.ndarray]:
     """x (n, d) numpy -> (centroids (k, d), assignments (n,)) as numpy,
-    with the Lloyd steps on ``device``."""
+    with the Lloyd steps on ``device``.  ``init`` seeds the centroids
+    with k distinct points drawn at random ("random") or by D^2 sampling
+    ("pp", k-means++)."""
+    if init not in ("random", "pp"):
+        raise ValueError(f"unknown init {init!r}")
     device = resolve_device(device)
     n, d = x.shape
     k = min(k, n)
     rng = np.random.default_rng(seed)
-    init_c = x[rng.choice(n, size=k, replace=False)].astype(np.float32)
+    if init == "pp":
+        init_c = _kmeanspp_init(x, k, rng)
+    else:
+        init_c = x[rng.choice(n, size=k, replace=False)].astype(np.float32)
     xs = torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32),
                          device=device)
     c, assign = _lloyd(xs, torch.as_tensor(init_c, device=device), k, iters)
     return c.cpu().numpy(), assign.cpu().numpy()
+
+
+def _kmeanspp_init(x: np.ndarray, k: int, rng: np.random.Generator
+                   ) -> np.ndarray:
+    """D^2-sampling seeding, a host loop as in the JAX package (the same
+    generator calls in the same order, so the same seeds)."""
+    n = x.shape[0]
+    centroids = [x[rng.integers(n)]]
+    d2 = np.sum((x - centroids[0]) ** 2, axis=1)
+    for _ in range(1, k):
+        probs = d2 / max(d2.sum(), 1e-12)
+        idx = rng.choice(n, p=probs)
+        centroids.append(x[idx])
+        d2 = np.minimum(d2, np.sum((x - centroids[-1]) ** 2, axis=1))
+    return np.stack(centroids).astype(np.float32)
 
 
 _ASSIGN_HOST_MAX = 1 << 22   # n*p at or below this: host GEMM off the card

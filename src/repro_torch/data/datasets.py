@@ -88,6 +88,15 @@ def clustered(n: int, dim: int, n_clusters: int = 64, seed: int = 0,
                          metric)
 
 
+def uniform(n: int, dim: int, seed: int = 0,
+            metric: str = "l2") -> VectorDataset:
+    """Uniform Gaussian: the hard case for partitioned indexes."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, dim)).astype(np.float32)
+    return VectorDataset(x, np.zeros(n, dtype=np.int64),
+                         np.zeros((1, dim), dtype=np.float32), metric)
+
+
 def queries_near(ds: VectorDataset, n_queries: int, seed: int = 1,
                  jitter: float = 0.1) -> np.ndarray:
     """Queries as jittered data points."""

@@ -36,9 +36,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SIGNATURES: Dict[str, Dict[str, str]] = {
     "scan_topk_indexed": {
         # q, data, valid, nrows, sel, qmask, order, ws, part_d, part_i,
-        # gbuf, run_d, run_i, B, U, S, d, K, Uc, scratch_blocks, is_bf16,
-        # l2, stream
-        "scan_indexed": "ppppppppppppp" + "iiiiiiiii" + "p",
+        # gbuf, run_d, run_i, B, U, S, d, K, Uc, scratch_blocks,
+        # query_chunks, is_bf16, l2, stream
+        "scan_indexed": "ppppppppppppp" + "iiiiiiiiii" + "p",
         # qmask, order, ws, B, U, Uc, stream
         "group_queries": "pppiiip",
         # d, K, is_bf16
@@ -47,8 +47,8 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
     "scan_topk_indexed_q8": {
         # q_codes, q_scales, codes, scales, aux, qc, valid, nrows, sel,
         # qmask, order, ws, part_d, part_i, gbuf, run_d, run_i, B, U, S, d,
-        # K, Uc, scratch_blocks, l2, stream
-        "scan_indexed_q8": "ppppppppppppppppp" + "iiiiiiii" + "p",
+        # K, Uc, scratch_blocks, query_chunks, l2, stream
+        "scan_indexed_q8": "ppppppppppppppppp" + "iiiiiiiii" + "p",
         # d, K
         "scan_indexed_q8_placement": "ii",
     },

@@ -252,8 +252,14 @@ __host__ inline size_t merge_smem_bytes(int K) {
   return (sizeof(float) + sizeof(int)) * (size_t)K;
 }
 
+// Lets fn take `bytes` of dynamic shared memory.  Without the attribute a
+// block may have 48 KB of shared memory in all, its static part (at most
+// STATIC_SMEM_MAX in these kernels: a flag, a tile counter, a row of
+// merge flags) included, so the attribute is set from 48 KB less that.
+constexpr size_t STATIC_SMEM_MAX = 1024;
+
 __host__ inline cudaError_t allow_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes + STATIC_SMEM_MAX <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }

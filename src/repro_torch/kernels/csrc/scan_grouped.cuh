@@ -38,10 +38,16 @@
 // 512-byte rows are small transfers for it.)  Rows
 // wider than the policy's DCH units are staged in column chunks, the
 // accumulators carried in registers from chunk to chunk, so the row
-// ring does not grow with d.  The tile's queries do: where the block
-// would pass the card's shared memory, grouped_placement sends the top-K
-// buffers to global memory, and the wrappers refuse rows too wide even
-// then.  Thread t owns row t % TR of each
+// ring does not grow with d.  The tile's queries are staged whole, once
+// a tile, while the block fits the card's shared memory (first with the
+// top-K buffers there, then with them in global memory: see
+// grouped_placement); past that width each stage of the ring also
+// carries the tile's queries' matching column chunk (GROUPED_QUERY_CHUNKS),
+// loaded beside the rows' chunk, so no part of the block grows with d
+// and rows of any width run.  All lanes of a warp read the same query
+// unit (a broadcast), so the query chunks need no bank padding; their
+// chunk is the rows' DCH, so the 16-byte units line up for the q8
+// policy's __dp4a.  Thread t owns row t % TR of each
 // stage and queries t / TR, t / TR + QB, .. of the tile (QB = 256 / TR):
 // every warp computes whatever the number of queries, and each 16-byte
 // read of a staged row feeds 4-8 FMAs (or 4 __dp4a) per query, the
@@ -165,26 +171,34 @@ struct GroupedArgs {
   float* gbuf_d;           // null: top-K buffers in shared memory; else
   int* gbuf_i;             //   gridDim.x * QT buffers of buffer_size(K)
   int B, S, K, u0, Uc;
+  bool query_chunks;       // the queries staged a column chunk a stage
 };
 
 // Shared-memory layout of one grouped block, in bytes.  A staged row
 // holds one column chunk of at most Pol::DCH units (all of it at d = 128).
+// The tile's queries are held whole (qld = dv), or with query_chunks one
+// column chunk a stage of the ring (qld = the chunk's units).
 template <class Pol>
 struct GroupedSmem {
   int dv;                  // row width rounded up to a 16-byte vector
   int ld;                  // staged row stride in units
+  int qld;                 // staged query stride in units
   size_t xs, mf, mv, qs, dt, meta, qmeta, bufd, bufi, qb, ok, total;
 
-  __host__ __device__ GroupedSmem(int width, int K, bool global_bufs) {
+  __host__ __device__ GroupedSmem(int width, int K, bool global_bufs,
+                                  bool query_chunks) {
     constexpr int VEC = Pol::VEC, TR = Pol::TR;
     dv = (width + VEC - 1) / VEC * VEC;
-    ld = (dv < Pol::DCH ? dv : Pol::DCH) + VEC;
+    const int chunk = dv < Pol::DCH ? dv : Pol::DCH;
+    ld = chunk + VEC;
+    qld = query_chunks ? chunk : dv;
     const size_t buf = global_bufs ? 0 : (size_t)QT * buffer_size(K);
     xs = 0;
     mf = xs + (size_t)STAGES * TR * ld * sizeof(typename Pol::Unit);
     mv = mf + (size_t)STAGES * Pol::NMETA * TR * sizeof(float);
     qs = mv + (size_t)STAGES * TR;
-    dt = qs + (size_t)QT * dv * sizeof(typename Pol::QUnit);
+    dt = qs + (size_t)(query_chunks ? STAGES : 1) * QT * qld
+                  * sizeof(typename Pol::QUnit);
     meta = dt + (size_t)2 * QT * TR * sizeof(typename Pol::Dot);
     qmeta = meta + (size_t)2 * TR * sizeof(float2);
     bufd = qmeta + (size_t)QT * sizeof(float2);
@@ -245,8 +259,10 @@ __device__ __forceinline__ void dot_n(int n, bool x, const Pol& pol,
 //   NMETA, meta_src(j)    per-row f32 arrays staged beside the rows;
 //   width, valid          units per row; the (P, S) validity bytes;
 //   aligned16(), row(p, s)           the rows' base and row s of p;
-//   load_query(b, u, dst, qm, lane)  (one warp) query b's width units into
-//                         dst as QUnits, and its (query, slot) scalars qm;
+//   query(b), query_meta(b, u)       query b's width units (Unit, as
+//                         stored) and its (query, slot) scalars;
+//   widen(x), widen16(dst, xv)       one query unit, or one 16-byte
+//                         vector of them, as QUnits;
 //   row_fold(acc, xv)     fold one 16-byte vector of a row into the row's
 //                         own sum (||x||^2 for float rows);
 //   row_meta(acc, mf, r, v, rm, ok)  the row's scalars from its sum and
@@ -268,7 +284,8 @@ __global__ void __launch_bounds__(THREADS) grouped_scan_kernel(
                 "a stage's rows must tile the block by whole warps");
   extern __shared__ __align__(16) unsigned char gsmem[];
   __shared__ int s_tile;
-  const GroupedSmem<Pol> L(pol.width, a.K, a.gbuf_d != nullptr);
+  const bool qchunks = a.query_chunks;
+  const GroupedSmem<Pol> L(pol.width, a.K, a.gbuf_d != nullptr, qchunks);
   Unit* xs = reinterpret_cast<Unit*>(gsmem + L.xs);
   QUnit* qs = reinterpret_cast<QUnit*>(gsmem + L.qs);
   float* mf = reinterpret_cast<float*>(gsmem + L.mf);
@@ -280,7 +297,7 @@ __global__ void __launch_bounds__(THREADS) grouped_scan_kernel(
   uint8_t* okr = gsmem + L.ok;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int r = tid % TR, qb = tid / TR;   // this thread's row, queries
-  const int width = pol.width, dv = L.dv, ld = L.ld;
+  const int width = pol.width, dv = L.dv, ld = L.ld, qld = L.qld;
   const int nd = (dv + DCH - 1) / DCH;   // column chunks per row
   const int buf = buffer_size(a.K);
   float* bd;
@@ -299,9 +316,13 @@ __global__ void __launch_bounds__(THREADS) grouped_scan_kernel(
     top[i] = WarpTopK{bd + (size_t)slot * buf,
                             bi + (size_t)slot * buf, a.K, buf, 0, INFINITY};
   }
-  // a query's padding past width is never written again and reads as 0
-  for (int t = tid; t < QT * dv; t += THREADS) qs[t] = QUnit(0);
+  // a whole query's padding past width is never written again and reads
+  // as 0 (query chunks are padded as they are staged)
+  if (!qchunks)
+    for (int t = tid; t < QT * dv; t += THREADS) qs[t] = QUnit(0);
   const bool vec = width % VEC == 0 && pol.aligned16();
+  const bool qvec = width % VEC == 0 &&
+      (reinterpret_cast<uintptr_t>(pol.query(0)) & 15) == 0;
   const bool vword = a.S % 4 == 0 &&
       (reinterpret_cast<uintptr_t>(pol.valid) & 3) == 0;
   const int t_begin = a.chunk_off[a.chunk];
@@ -320,10 +341,13 @@ __global__ void __launch_bounds__(THREADS) grouped_scan_kernel(
     const int nrows = a.nrows[p];
     for (int i = warp; i < nq; i += WARPS) {
       const int b = a.qlist[(size_t)u * a.B + q0 + i];
-      float2 qm;
-      pol.load_query(b, u, qs + (size_t)i * dv, qm, lane);
+      if (!qchunks) {
+        const Unit* qr = pol.query(b);
+        for (int j = lane; j < width; j += 32)
+          qs[(size_t)i * dv + j] = Pol::widen(qr[j]);
+      }
       if (lane == 0) {
-        qmeta[i] = qm;
+        qmeta[i] = pol.query_meta(b, u);
         qb_s[i] = b;
       }
     }
@@ -347,7 +371,9 @@ __global__ void __launch_bounds__(THREADS) grouped_scan_kernel(
     // s % STAGES, with the rows' validity bytes and the policy's per-row
     // arrays on the last column chunk of a row tile, so no global read
     // stands between a stage and its distances.  Rows past nrows and
-    // units past width read as 0.
+    // units past width read as 0.  With query chunks, the tile's queries'
+    // units [k0, k0 + DCH) go to the slot too, after the rows' copies
+    // are issued (plain loads: bf16 queries are widened to f32).
     auto stage = [&](int s) {
       const int slot = s % STAGES;
       const int r0 = s / nd * TR, k0 = s % nd * DCH;
@@ -395,6 +421,31 @@ __global__ void __launch_bounds__(THREADS) grouped_scan_kernel(
               ? src[(size_t)(r0 + rr) * width + k0 + j] : Unit(0);
         }
       }
+      if (!qchunks) return;
+      QUnit* qd = qs + (size_t)slot * QT * qld;
+      if (qvec) {                      // kv == kw: 16-byte vectors
+        const int vpr = kv / VEC;
+        constexpr int NV = (QT * DCH / VEC + THREADS - 1) / THREADS;
+        uint4 w[NV];                   // all loads first, then the stores
+#pragma unroll
+        for (int m = 0; m < NV; ++m) {
+          const int c = tid + m * THREADS, i = c / vpr;
+          if (i < nq)
+            w[m] = *reinterpret_cast<const uint4*>(
+                pol.query(qb_s[i]) + k0 + (c - i * vpr) * VEC);
+        }
+#pragma unroll
+        for (int m = 0; m < NV; ++m) {
+          const int c = tid + m * THREADS, i = c / vpr;
+          if (i < nq) Pol::widen16(qd + i * qld + (c - i * vpr) * VEC, w[m]);
+        }
+      } else {
+        for (int c = tid; c < nq * kv; c += THREADS) {
+          const int i = c / kv, j = c - i * kv;
+          qd[i * qld + j] = j < kw ? Pol::widen(pol.query(qb_s[i])[k0 + j])
+                                   : QUnit(0);
+        }
+      }
     };
 
     const int nstages = (nrows + TR - 1) / TR * nd;
@@ -438,9 +489,10 @@ __global__ void __launch_bounds__(THREADS) grouped_scan_kernel(
         for (int i = 0; i < MQT; ++i) acc[i] = Acc{};
       }
       const Unit* xr = xs + (size_t)(s % STAGES) * TR * ld + r * ld;
+      const QUnit* qp = qs + (size_t)qb * qld +
+          (qchunks ? (size_t)(s % STAGES) * QT * qld : (size_t)dc * DCH);
       // (qb == 0 has a query whenever the tile has one)
-      dot_n<Pol, MQT>(nmine, qb == 0, pol, xr,
-                      qs + (size_t)qb * dv + dc * DCH, QB * dv, kv, acc,
+      dot_n<Pol, MQT>(nmine, qb == 0, pol, xr, qp, QB * qld, kv, acc,
                       racc);
       if (dc == nd - 1) {            // uniform across the block
         const int h = rt & 1;
@@ -512,14 +564,17 @@ __host__ inline cudaError_t launch_grouping(const uint8_t* qmask,
   return cudaGetLastError();
 }
 
-// Where a block keeps its top-K buffers for rows of `width` units at K:
-// GROUPED_SMEM_BUFS in shared memory (they take at most TOPK_SMEM_BYTES
-// and the block's total fits), GROUPED_GLOBAL_BUFS in the wrapper's
-// global scratch (the block fits without them), GROUPED_TOO_WIDE when
-// the rows' staging and the tile's queries alone pass the limit: the
-// device's opt-in shared memory a block (227 KB on an H100) less the
-// kernel's static shared memory.
-enum { GROUPED_SMEM_BUFS = 0, GROUPED_GLOBAL_BUFS = 1, GROUPED_TOO_WIDE = 2 };
+// How a block lays out its shared memory for rows of `width` units at K,
+// within the limit: the device's opt-in shared memory a block (227 KB on
+// an H100) less the kernel's static shared memory.  The first that fits
+// of: the tile's queries whole and the top-K buffers in shared memory
+// (GROUPED_SMEM_BUFS; the buffers take at most TOPK_SMEM_BYTES), whole
+// queries and the buffers in the wrapper's global scratch
+// (GROUPED_GLOBAL_BUFS), then the same two with the queries staged a
+// column chunk a stage (| GROUPED_QUERY_CHUNKS).  The last does not grow
+// with width or K, so every width has a layout.
+enum { GROUPED_SMEM_BUFS = 0, GROUPED_GLOBAL_BUFS = 1,
+       GROUPED_QUERY_CHUNKS = 4 };
 
 template <class Pol>
 __host__ cudaError_t grouped_placement(int width, int K, int& placement) {
@@ -534,26 +589,28 @@ __host__ cudaError_t grouped_placement(int width, int K, int& placement) {
       &attr, reinterpret_cast<const void*>(&grouped_scan_kernel<Pol>));
   if (err != cudaSuccess) return err;
   const size_t limit = (size_t)optin - attr.sharedSizeBytes;
-  const size_t bufs = (size_t)QT * buffer_size(K) * 8;
-  if (bufs <= TOPK_SMEM_BYTES &&
-      GroupedSmem<Pol>(width, K, false).total <= limit)
+  const bool small = (size_t)QT * buffer_size(K) * 8 <= TOPK_SMEM_BYTES;
+  if (small && GroupedSmem<Pol>(width, K, false, false).total <= limit)
     placement = GROUPED_SMEM_BUFS;
-  else if (GroupedSmem<Pol>(width, K, true).total <= limit)
+  else if (GroupedSmem<Pol>(width, K, true, false).total <= limit)
     placement = GROUPED_GLOBAL_BUFS;
+  else if (small && GroupedSmem<Pol>(width, K, false, true).total <= limit)
+    placement = GROUPED_SMEM_BUFS | GROUPED_QUERY_CHUNKS;
   else
-    placement = GROUPED_TOO_WIDE;
+    placement = GROUPED_GLOBAL_BUFS | GROUPED_QUERY_CHUNKS;
   return cudaSuccess;
 }
 
 // The whole scan: grouping, then per chunk of Uc union slots pass one and
-// the merge into run (B, K).
+// the merge into run (B, K).  gbuf is null with GROUPED_SMEM_BUFS; the
+// layout flag query_chunks is grouped_placement's GROUPED_QUERY_CHUNKS.
 template <class Pol>
 cudaError_t launch_grouped(const Pol& pol, const int* sel, const int* nrows,
                            const uint8_t* qmask, const int* order, int* ws,
                            float* part_d, int* part_i, float* gbuf,
-                           int scratch_blocks, float* run_d, int* run_i,
-                           int B, int U, int S, int K, int Uc,
-                           cudaStream_t stream) {
+                           int scratch_blocks, bool query_chunks,
+                           float* run_d, int* run_i, int B, int U, int S,
+                           int K, int Uc, cudaStream_t stream) {
   if (K < 1 || K > K_MAX || (K & (K - 1)) || Uc < 1)
     return cudaErrorInvalidValue;
   const int nchunks = (U + Uc - 1) / Uc;
@@ -564,7 +621,8 @@ cudaError_t launch_grouped(const Pol& pol, const int* sel, const int* nrows,
   const bool global = gbuf != nullptr;
   // past the card's limit (the wrapper asks grouped_placement first)
   // allow_smem fails and the launch returns its error
-  const size_t smem = GroupedSmem<Pol>(pol.width, K, global).total;
+  const size_t smem =
+      GroupedSmem<Pol>(pol.width, K, global, query_chunks).total;
   const void* fn = reinterpret_cast<const void*>(&grouped_scan_kernel<Pol>);
   err = allow_smem(fn, smem);
   if (err != cudaSuccess) return err;
@@ -585,7 +643,7 @@ cudaError_t launch_grouped(const Pol& pol, const int* sel, const int* nrows,
                 global ? reinterpret_cast<int*>(
                              gbuf + (size_t)scratch_blocks * QT * buf)
                        : nullptr,
-                B, S, K, 0, 0};
+                B, S, K, 0, 0, query_chunks};
   for (int c = 0; c < nchunks; ++c) {
     a.chunk = c;
     a.u0 = c * Uc;

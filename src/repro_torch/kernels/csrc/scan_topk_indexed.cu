@@ -87,11 +87,16 @@ struct FloatTiles {
   __device__ const T* row(int p, int s) const {
     return data + ((size_t)p * S + s) * width;
   }
-  __device__ void load_query(int b, int u, float* dst, float2& qm,
-                             int lane) const {
-    for (int j = lane; j < width; j += 32)
-      dst[j] = to_f32(q[(size_t)b * width + j]);
-    qm = make_float2(0.f, 0.f);
+  __device__ const T* query(int b) const { return q + (size_t)b * width; }
+  __device__ float2 query_meta(int, int) const { return make_float2(0.f, 0.f); }
+  __device__ static float widen(T v) { return to_f32(v); }
+  __device__ static void widen16(float* dst, const uint4& w) {
+    float f[VEC];
+    unpack(w, f);
+#pragma unroll
+    for (int j = 0; j < VEC; j += 4)
+      *reinterpret_cast<float4*>(dst + j) =
+          make_float4(f[j], f[j + 1], f[j + 2], f[j + 3]);
   }
   __device__ void row_fold(float2& x2, const uint4& xv) const {
     float f[VEC];
@@ -143,14 +148,16 @@ struct FloatTiles {
 // each chunk of Uc slots); ws the int32 workspace that GroupedWs lays
 // out; part (B, Uc, K) scratch; gbuf null, or (K past what shared memory
 // holds) scratch_blocks * QT * buffer_size(K) distances and as many
-// indices; run (B, K) the running result, initialised by the caller and
-// updated in place.  K is a power of two <= K_MAX.
+// indices; query_chunks the layout flag of scan_indexed_placement; run
+// (B, K) the running result, initialised by the caller and updated in
+// place.  K is a power of two <= K_MAX.
 extern "C" int scan_indexed(void* q, void* data, void* valid, void* nrows,
                             void* sel, void* qmask, void* order, void* ws,
                             void* part_d, void* part_i, void* gbuf,
                             void* run_d, void* run_i, int B, int U, int S,
                             int d, int K, int Uc, int scratch_blocks,
-                            int is_bf16, int l2, void* stream) {
+                            int query_chunks, int is_bf16, int l2,
+                            void* stream) {
   auto* s = static_cast<cudaStream_t>(stream);
   auto* v = static_cast<const uint8_t*>(valid);
   auto* nr = static_cast<const int*>(nrows);
@@ -171,13 +178,15 @@ extern "C" int scan_indexed(void* q, void* data, void* valid, void* nrows,
                                    static_cast<const T*>(data), v, d, S,
                                    coef, l2};
     err = quake::launch_grouped(pol, se, nr, qm, od, w, pd, pi, gb,
-                                scratch_blocks, rd, ri, B, U, S, K, Uc, s);
+                                scratch_blocks, query_chunks != 0, rd, ri,
+                                B, U, S, K, Uc, s);
   } else {
     const quake::FloatTiles<float> pol{static_cast<const float*>(q),
                                        static_cast<const float*>(data), v,
                                        d, S, coef, l2};
     err = quake::launch_grouped(pol, se, nr, qm, od, w, pd, pi, gb,
-                                scratch_blocks, rd, ri, B, U, S, K, Uc, s);
+                                scratch_blocks, query_chunks != 0, rd, ri,
+                                B, U, S, K, Uc, s);
   }
   return static_cast<int>(err);
 }
@@ -193,9 +202,10 @@ extern "C" int group_queries(void* qmask, void* order, void* ws, int B,
       B, U, Uc, static_cast<cudaStream_t>(stream)));
 }
 
-// Where a block keeps its top-K buffers for rows of width d at K
-// (GROUPED_SMEM_BUFS, GROUPED_GLOBAL_BUFS or GROUPED_TOO_WIDE of
-// scan_grouped.cuh), or the negated CUDA error.
+// How a block lays out its shared memory for rows of width d at K
+// (grouped_placement of scan_grouped.cuh: GROUPED_SMEM_BUFS or
+// GROUPED_GLOBAL_BUFS, with GROUPED_QUERY_CHUNKS past the widths that
+// hold the tile's queries whole), or the negated CUDA error.
 extern "C" int scan_indexed_placement(int d, int K, int is_bf16) {
   int placement = 0;
   const cudaError_t err =

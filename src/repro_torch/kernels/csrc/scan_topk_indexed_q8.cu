@@ -82,11 +82,15 @@ struct Q8Tiles {
   __device__ const int* row(int p, int s) const {
     return codes + ((size_t)p * S + s) * width;
   }
-  __device__ void load_query(int b, int u, int* dst, float2& qm,
-                             int lane) const {
-    for (int j = lane; j < width; j += 32)
-      dst[j] = q_codes[(size_t)b * width + j];
-    qm = make_float2(qc[(size_t)b * U + u], q_scales[b]);
+  __device__ const int* query(int b) const {
+    return q_codes + (size_t)b * width;
+  }
+  __device__ float2 query_meta(int b, int u) const {
+    return make_float2(qc[(size_t)b * U + u], q_scales[b]);
+  }
+  __device__ static int widen(int v) { return v; }
+  __device__ static void widen16(int* dst, const uint4& w) {
+    *reinterpret_cast<uint4*>(dst) = w;
   }
   __device__ void row_fold(float2&, const uint4&) const {}
   __device__ void row_meta(float2, const float* mf, int r, bool v,
@@ -120,8 +124,9 @@ struct Q8Tiles {
 // workspace that GroupedWs lays out;
 // part (B, Uc, K) scratch; gbuf null, or (K past what shared memory
 // holds) scratch_blocks * QT * buffer_size(K) distances and as many
-// indices; run (B, K) the running result, initialised by the caller and
-// updated in place.  K is a power of two <= K_MAX.
+// indices; query_chunks the layout flag of scan_indexed_q8_placement;
+// run (B, K) the running result, initialised by the caller and updated
+// in place.  K is a power of two <= K_MAX.
 extern "C" int scan_indexed_q8(void* q_codes, void* q_scales, void* codes,
                                void* scales, void* aux, void* qc,
                                void* valid, void* nrows, void* sel,
@@ -129,7 +134,7 @@ extern "C" int scan_indexed_q8(void* q_codes, void* q_scales, void* codes,
                                void* part_d, void* part_i, void* gbuf,
                                void* run_d, void* run_i, int B, int U, int S,
                                int d, int K, int Uc, int scratch_blocks,
-                               int l2, void* stream) {
+                               int query_chunks, int l2, void* stream) {
   const quake::Q8Tiles pol{
       static_cast<const int*>(q_codes), static_cast<const float*>(q_scales),
       static_cast<const int*>(codes), static_cast<const float*>(scales),
@@ -140,14 +145,13 @@ extern "C" int scan_indexed_q8(void* q_codes, void* q_scales, void* codes,
       static_cast<const uint8_t*>(qmask), static_cast<const int*>(order),
       static_cast<int*>(ws),
       static_cast<float*>(part_d), static_cast<int*>(part_i),
-      static_cast<float*>(gbuf), scratch_blocks, static_cast<float*>(run_d),
-      static_cast<int*>(run_i), B, U, S, K, Uc,
+      static_cast<float*>(gbuf), scratch_blocks, query_chunks != 0,
+      static_cast<float*>(run_d), static_cast<int*>(run_i), B, U, S, K, Uc,
       static_cast<cudaStream_t>(stream)));
 }
 
-// Where a block keeps its top-K buffers for codes of width d at K
-// (GROUPED_SMEM_BUFS, GROUPED_GLOBAL_BUFS or GROUPED_TOO_WIDE of
-// scan_grouped.cuh), or the negated CUDA error.
+// How a block lays out its shared memory for codes of width d at K
+// (grouped_placement of scan_grouped.cuh), or the negated CUDA error.
 extern "C" int scan_indexed_q8_placement(int d, int K) {
   int placement = 0;
   const cudaError_t err =

@@ -218,20 +218,20 @@ def scan_indexed_q8_ref(q_codes: Tensor, q_scales: Tensor, codes: Tensor,
 
     dequantized in that order; ascending top-k with flat indices
     p * S + s, equal distances keeping the earlier union position, misses
-    MASK_DIST / -1.  ``||q||^2`` is left out.  The int8 product runs as an
-    f32 product: every partial sum is an integer of magnitude at most
-    127^2 * d < 2^24, so it is exact in any order."""
+    MASK_DIST / -1.  ``||q||^2`` is left out.  The int8 product is exact
+    and then rounded once to f32, as the kernel's int32 sum is: below
+    d = 1,041 it runs as an f32 product (every partial sum is an integer
+    of magnitude at most 127^2 * d < 2^24, exact in any order), past it
+    as an f64 one (exact below 2^53)."""
     d = codes.shape[2]
-    if 127 * 127 * d >= 1 << 24:
-        raise ValueError(f"d={d}: int8 dot products would not be exact "
-                         "in f32")
+    exact = torch.float32 if 127 * 127 * d < 1 << 24 else torch.float64
     sel = sel.long()
     coef = -2.0 if metric == "l2" else -1.0
-    blocks = codes.index_select(0, sel).float()            # (U, S, d)
+    blocks = codes.index_select(0, sel).to(exact)          # (U, S, d)
     xs = scales.index_select(0, sel).float()                # (U, S)
     aux_u = aux.index_select(0, sel)
     ok = valid.index_select(0, sel)
-    qf, qs = q_codes.float(), q_scales.float()
+    qf, qs = q_codes.to(exact), q_scales.float()
     s = codes.shape[1]
     flat_idx = (sel[:, None] * s
                 + torch.arange(s, device=sel.device)[None, :]).reshape(-1)
@@ -241,8 +241,8 @@ def scan_indexed_q8_ref(q_codes: Tensor, q_scales: Tensor, codes: Tensor,
     out_i = [torch.full((0, k_eff), -1, dtype=torch.int32,
                         device=codes.device)]
     for b0 in range(0, q_codes.shape[0], rows):
-        # quakecheck: disable=QK103(f32 operands: int8 sums below 2^24 are exact in f32)
-        acc = torch.einsum("usd,bd->bus", blocks, qf[b0:b0 + rows])
+        # quakecheck: disable=QK103(float operands: int8 sums exact in f32 below 2^24, in f64 past it)
+        acc = torch.einsum("usd,bd->bus", blocks, qf[b0:b0 + rows]).float()
         qx = (qc[b0:b0 + rows, :, None]
               + acc * qs[b0:b0 + rows, None, None] * xs[None])
         dist = aux_u[None] + coef * qx

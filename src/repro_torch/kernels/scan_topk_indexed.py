@@ -19,10 +19,11 @@ union slots they probe (``group_queries_plain`` is that step in plain
 PyTorch), and one block scans one partition for up to ``QT`` of its
 queries.  Every ``k_pad`` up to ``K_MAX`` runs on the kernels; past what
 a block's shared memory holds, the per-query top-K buffers go to a global
-scratch the wrapper allocates.  A block keeps its tile's queries and a
-ring of staged rows in shared memory, so the row width has a limit too:
-1,892 f32 or 1,888 bf16 values, or 4,832 int8 codes, on an H100 (227 KB
-a block); past it the wrappers raise ``ValueError``.
+scratch the wrapper allocates.  Rows of any width run: a block stages its
+rows in column chunks through a ring, and its tile's queries whole while
+they fit beside the ring (up to 1,892 f32 or 1,888 bf16 values, or 4,832
+int8 codes, on an H100's 227 KB a block), past that a column chunk a
+stage of the ring too (``QUERY_CHUNKS``).
 
 The int8 variant ``scan_topk_indexed_q8`` (``csrc/scan_topk_indexed_q8.cu``,
 replacing ``scan_topk_indexed_q8_pallas``) scans IVF-residual int8 codes:
@@ -48,7 +49,8 @@ import torch
 from . import build, ref
 from .ref import MASK_DIST, quantize_int8, quantize_int8_residual
 
-__all__ = ["K_MAX", "LAUNCHES", "LAUNCHES_Q8", "QT", "buffer_size",
+__all__ = ["K_MAX", "LAUNCHES", "LAUNCHES_Q8", "QT", "QUERY_CHUNKS",
+           "buffer_size",
            "meta_placement", "work",
            "group_queries_cuda", "group_queries_plain", "live_rows",
            "slot_order",
@@ -65,8 +67,8 @@ K_MAX = 16384                # largest k_pad the kernels take
 SCRATCH_BYTES = 2 << 30      # bound on the (B, Uc, k_pad) partial lists
 QT = 16                      # queries per tile of the grouped driver
 TOPK_SCRATCH_BYTES = 256 << 20   # bound on the global top-K buffers
-# the widest rows a block's shared memory stages on an H100 (227 KB)
-MAX_WIDTH = {"f32": 1892, "bf16": 1888, "q8": 4832}
+GLOBAL_BUFS = 1              # placement: top-K buffers in global scratch
+QUERY_CHUNKS = 4             # placement flag: queries staged by chunks
 
 
 def _check_k_pad(k_pad: int) -> None:
@@ -111,14 +113,12 @@ def work(b: int, u: int, s: int, d: int, k_pad: int, elem: int,
     return 2.0 * active * d, float(nbytes)
 
 
-def meta_placement(kind: str, d: int, k_pad: int) -> int:
-    """``_placement`` for a call on meta tensors, with no library: the
-    top-K buffers in shared memory while they take at most the kernels'
-    ``TOPK_SMEM_BYTES`` (64 KB), else in global scratch; rows past the
-    card's widths (``MAX_WIDTH``) are too wide."""
-    if d > MAX_WIDTH[kind]:
-        return 2
-    return 0 if QT * buffer_size(k_pad) * 8 <= 64 << 10 else 1
+def meta_placement(k_pad: int) -> int:
+    """Where ``_placement`` puts the top-K buffers, for a call on meta
+    tensors with no library: in shared memory (0) while they take at
+    most the kernels' ``TOPK_SMEM_BYTES`` (64 KB), else in global scratch
+    (``GLOBAL_BUFS``).  The query layout changes no allocation."""
+    return 0 if QT * buffer_size(k_pad) * 8 <= 64 << 10 else GLOBAL_BUFS
 
 
 def slot_order(sel: Tensor, nrows: Tensor, uc: int) -> Tensor:
@@ -202,11 +202,13 @@ def group_queries_cuda(qmask: Tensor, order: Optional[Tensor] = None,
 
 @functools.lru_cache(maxsize=None)
 def _placement(kind: str, d: int, k_pad: int, device: int) -> int:
-    """Where a block of the ``kind`` kernel ("f32", "bf16" or "q8") keeps
-    its top-K buffers at width ``d`` and ``k_pad`` on CUDA device
-    ``device``: 0 in shared memory, 1 in global scratch, 2 nowhere (the
-    rows are too wide for the block's shared memory).  The kernels'
-    ``grouped_placement`` decides, from the card's limit."""
+    """How a block of the ``kind`` kernel ("f32", "bf16" or "q8") lays
+    out its shared memory at width ``d`` and ``k_pad`` on CUDA device
+    ``device``: the top-K buffers in shared memory (0) or in global
+    scratch (``GLOBAL_BUFS``), and ``| QUERY_CHUNKS`` where the tile's
+    queries are staged a column chunk at a time (rows too wide to hold
+    them whole).  The kernels' ``grouped_placement`` decides, from the
+    card's limit."""
     with torch.cuda.device(device):
         if kind == "q8":
             got = build.lib("scan_topk_indexed_q8").scan_indexed_q8_placement(
@@ -221,27 +223,24 @@ def _placement(kind: str, d: int, k_pad: int, device: int) -> int:
 
 def _grouped_scratch(kind: str, d: int, b: int, u: int, uc: int,
                      k_pad: int, dev
-                     ) -> Tuple[Tensor, Optional[Tensor], int]:
+                     ) -> Tuple[Tensor, Optional[Tensor], int, int]:
     """(workspace, global top-K buffers or None, their number of
-    blocks) for one launch of an indexed kernel."""
+    blocks, the query-chunks flag) for one launch of an indexed kernel."""
     if dev.type == "meta":
-        where = meta_placement(kind, d, k_pad)
+        where = meta_placement(k_pad)
     else:
         where = _placement(kind, d, k_pad, dev.index
                            if dev.index is not None
                            else torch.cuda.current_device())
-    if where == 2:
-        raise ValueError(f"rows of width {d} are too wide for the {kind} "
-                         f"kernel: its block's shared memory holds the "
-                         f"tile's queries and a ring of staged rows")
     ws = _workspace(b, u, -(-u // uc), dev)
-    if where == 0:
-        return ws, None, 0
+    chunks = int(bool(where & QUERY_CHUNKS))
+    if not where & GLOBAL_BUFS:
+        return ws, None, 0, chunks
     per_block = QT * buffer_size(k_pad) * 8
     blocks = max(1, TOPK_SCRATCH_BYTES // per_block)
     gbuf = torch.empty(blocks * per_block // 4, dtype=torch.float32,
                        device=dev)
-    return ws, gbuf, blocks
+    return ws, gbuf, blocks, chunks
 
 
 def scan_topk_indexed_plain(queries: Tensor, data: Tensor, valid: Tensor,
@@ -314,7 +313,8 @@ def scan_topk_indexed_cuda(queries: Tensor, data: Tensor, valid: Tensor,
     part_d = torch.empty((b, uc, k_pad), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, uc, k_pad), dtype=torch.int32, device=dev)
     kind = "bf16" if data.dtype == torch.bfloat16 else "f32"
-    ws, gbuf, blocks = _grouped_scratch(kind, d, b, u, uc, k_pad, dev)
+    ws, gbuf, blocks, chunks = _grouped_scratch(kind, d, b, u, uc, k_pad,
+                                                dev)
     nrows = live_rows(valid)
     order = slot_order(sel, nrows, uc)
     if dev.type == "meta":
@@ -328,7 +328,7 @@ def scan_topk_indexed_cuda(queries: Tensor, data: Tensor, valid: Tensor,
         order.data_ptr(), ws.data_ptr(),
         part_d.data_ptr(), part_i.data_ptr(),
         None if gbuf is None else gbuf.data_ptr(), run_d.data_ptr(),
-        run_i.data_ptr(), b, u, s, d, k_pad, uc, blocks,
+        run_i.data_ptr(), b, u, s, d, k_pad, uc, blocks, chunks,
         int(data.dtype == torch.bfloat16), int(metric == "l2"), stream)
     build.check_launch(err, "scan_topk_indexed")
     LAUNCHES.add()
@@ -423,7 +423,8 @@ def scan_topk_indexed_q8_cuda(q_codes: Tensor, q_scales: Tensor,
     uc = max(1, min(u, SCRATCH_BYTES // (b * k_pad * 8)))
     part_d = torch.empty((b, uc, k_pad), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, uc, k_pad), dtype=torch.int32, device=dev)
-    ws, gbuf, blocks = _grouped_scratch("q8", d, b, u, uc, k_pad, dev)
+    ws, gbuf, blocks, chunks = _grouped_scratch("q8", d, b, u, uc, k_pad,
+                                                dev)
     nrows = live_rows(valid)
     order = slot_order(sel, nrows, uc)
     if dev.type == "meta":
@@ -438,7 +439,7 @@ def scan_topk_indexed_q8_cuda(q_codes: Tensor, q_scales: Tensor,
         order.data_ptr(), ws.data_ptr(),
         part_d.data_ptr(), part_i.data_ptr(),
         None if gbuf is None else gbuf.data_ptr(), run_d.data_ptr(),
-        run_i.data_ptr(), b, u, s, d, k_pad, uc, blocks,
+        run_i.data_ptr(), b, u, s, d, k_pad, uc, blocks, chunks,
         int(metric == "l2"), stream)
     build.check_launch(err, "scan_topk_indexed_q8")
     LAUNCHES_Q8.add()

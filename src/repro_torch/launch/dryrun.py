@@ -16,14 +16,20 @@ exactly linear in the depth), since a meta run of every layer's forward,
 recompute and backward takes minutes; their arguments are counted at
 full depth.
 
+``--profile`` also prints each cell's op-level attribution
+(``roofline/profile.py``): its top collectives by wire bytes and its top
+op classes by unfused bytes.
+
 Usage:
     python -m repro_torch.launch.dryrun --all
     python -m repro_torch.launch.dryrun --arch qwen2.5-14b --shape train_4k
     python -m repro_torch.launch.dryrun --arch quake-ann --multi-pod-only
+    python -m repro_torch.launch.dryrun --arch gat-cora --profile
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import multiprocessing
 import os
@@ -70,9 +76,10 @@ def count_cell(arch: str, shape: str, mesh) -> Dict:
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool, *,
-             verbose: bool = True) -> Dict:
+             verbose: bool = True, profile: bool = False) -> Dict:
     from ..launch.mesh import make_production_mesh
     from ..roofline.analysis import analyze
+    from ..roofline.profile import print_profile
     mesh = make_production_mesh(multi_pod)
     t0 = time.time()
     count = count_cell(arch, shape, mesh)
@@ -90,13 +97,16 @@ def run_cell(arch: str, shape: str, multi_pod: bool, *,
               f"t_comp {result['t_compute_ms']:.3f}ms (by dtype) "
               f"t_mem {result['t_memory_ms']:.3f}ms (unfused) "
               f"t_coll {result['t_collective_ms']:.3f}ms", flush=True)
+    if profile:
+        print_profile(count)
     return result
 
 
-def _job(key: str):
+def _job(key: str, profile: bool = False):
     mesh_name, arch, shape = key.split("/")
     try:
-        return key, run_cell(arch, shape, MESHES[mesh_name])
+        return key, run_cell(arch, shape, MESHES[mesh_name],
+                             profile=profile)
     except Exception as e:  # noqa: BLE001 — report every failure
         traceback.print_exc()
         return key, {"error": repr(e)}
@@ -113,6 +123,8 @@ def main() -> None:
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells counted in parallel, one process each")
+    ap.add_argument("--profile", action="store_true",
+                    help="print each cell's top collectives and memory ops")
     args = ap.parse_args()
     from ..configs import REGISTRY
 
@@ -135,17 +147,18 @@ def main() -> None:
             if not (args.skip_existing and f"{m}/{a}/{s}" in results
                     and "error" not in results[f"{m}/{a}/{s}"])]
     t0 = time.time()
+    job = functools.partial(_job, profile=args.profile)
     if args.jobs > 1:
         ctx = multiprocessing.get_context("spawn")
         with ProcessPoolExecutor(args.jobs, mp_context=ctx) as pool:
             # the slowest (LM training) cells first
             order = sorted(keys, key=lambda k: "train_4k" not in k)
-            for key, res in pool.map(_job, order):
+            for key, res in pool.map(job, order):
                 results[key] = res
     else:
         for key in keys:
             print(f"=== {key}", flush=True)
-            results[key] = _job(key)[1]
+            results[key] = job(key)[1]
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)
 

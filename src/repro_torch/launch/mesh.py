@@ -226,12 +226,15 @@ class Mesh:
             self._recording -= 1
 
     def _record(self, kind: str, axes: Axes, n: int, nbytes: int,
-                wire: float) -> None:
+                wire: float, shape: tuple, dtype) -> None:
+        """One record: ``shape`` and ``dtype`` are the collective's
+        result's (the whole gathered tensor, the scattered piece)."""
         if not self._recording:
             return
         self.records.append({
             "kind": kind, "axes": axes, "n": n, "bytes": int(nbytes),
-            "wire_bytes": float(wire),
+            "wire_bytes": float(wire), "shape": tuple(shape),
+            "dtype": str(dtype).replace("torch.", ""),
             "pass": "backward" if self._backward else "forward"})
 
     def collective_totals(self) -> dict:
@@ -249,7 +252,10 @@ class Mesh:
         if n == 1:
             return t
         full = t.numel() * t.element_size() * n
-        self._record("all-gather", axes, n, full, full * _frac(n))
+        shape = list(t.shape)
+        shape[dim] *= n
+        self._record("all-gather", axes, n, full, full * _frac(n), shape,
+                     t.dtype)
         g = self.group(axes)
         if g is None:
             return torch.cat([t] * n, dim=dim)
@@ -263,7 +269,8 @@ class Mesh:
         if n == 1:
             return t
         nbytes = t.numel() * t.element_size()
-        self._record("all-reduce", axes, n, nbytes, 2 * nbytes * _frac(n))
+        self._record("all-reduce", axes, n, nbytes, 2 * nbytes * _frac(n),
+                     t.shape, t.dtype)
         out = t.clone()
         g = self.group(axes)
         if g is not None:
@@ -278,8 +285,11 @@ class Mesh:
             raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
                              f"split {n} ways")
         nbytes = t.numel() * t.element_size()
-        self._record("reduce-scatter", axes, n, nbytes, nbytes * _frac(n))
         size = t.shape[dim] // n
+        shape = list(t.shape)
+        shape[dim] = size
+        self._record("reduce-scatter", axes, n, nbytes, nbytes * _frac(n),
+                     shape, t.dtype)
         g = self.group(axes)
         if g is None:
             return t.narrow(dim, self.index(axes) * size, size).clone()

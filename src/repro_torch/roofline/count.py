@@ -23,7 +23,14 @@ rank's local shapes, the kernels' wrappers on the card's route through
 - ``bytes_accessed``: the sum over ops of their tensor inputs' and
   outputs' bytes, unfused (each op as if it read and wrote device memory),
   plus the kernels' own bytes;
-- the collectives that ``mesh`` recorded.
+- ``op_table``: that op part by op class (``aten.mm``, ...): its bytes,
+  its calls and one example result shape (the first, or one of more
+  than 100 MB);
+- the collectives that ``mesh`` recorded: their totals, and
+  ``collective_table``, the identical records (kind, result shape,
+  axes, pass) counted as trips of one row.
+
+``roofline/profile.py`` ranks the two tables (the op-level attribution).
 """
 from __future__ import annotations
 
@@ -75,11 +82,37 @@ def _nbytes(x) -> int:
     return x.numel() * x.element_size() if isinstance(x, Tensor) else 0
 
 
+_SHORT = {"float32": "f32", "float64": "f64", "bfloat16": "bf16",
+          "float16": "f16", "int64": "s64", "int32": "s32", "int16": "s16",
+          "int8": "s8", "uint8": "u8", "bool": "pred"}
+
+
+def shape_str(dtype, shape) -> str:
+    """A shape as the reference's HLO prints one: ``f32[4,128]``."""
+    name = str(dtype).replace("torch.", "")
+    return f"{_SHORT.get(name, name)}[{','.join(str(n) for n in shape)}]"
+
+
+def collective_table(records: List[dict]) -> Dict[str, dict]:
+    """A mesh's records grouped by (kind, result shape, axes, pass):
+    each row's ``trips`` (identical records) and their ``wire_bytes``."""
+    table: Dict[str, dict] = {}
+    for r in records:
+        shape = shape_str(r["dtype"], r["shape"])
+        key = f"{r['kind']} {shape} {','.join(r['axes'])} {r['pass']}"
+        row = table.setdefault(key, {
+            "kind": r["kind"], "shape": shape, "axes": list(r["axes"]),
+            "comp": r["pass"], "trips": 0, "wire_bytes": 0.0})
+        row["trips"] += 1
+        row["wire_bytes"] += r["wire_bytes"]
+    return table
+
+
 class LiveBytes(TorchDispatchMode):
     """Tracks the bytes of the storages that ops make while it is on:
     ``live`` now, ``peak`` the most at once; ``accessed``, each op's
-    tensor inputs and outputs summed; and ``flops``, each op's count by
-    the dtype of its first tensor input.  Storages that existed before (the
+    tensor inputs and outputs summed, also by op class in ``ops``; and
+    ``flops``, each op's count by the dtype of its first tensor input.  Storages that existed before (the
     arguments') are not counted.  ``granule`` rounds each storage up to a
     multiple of it (512: the CUDA caching allocator's)."""
 
@@ -94,6 +127,7 @@ class LiveBytes(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self.accessed = 0
+        self.ops: Dict[str, dict] = {}     # op class -> bytes, calls, example
         self.flops: Dict[str, float] = {}
 
     def _free(self, n: int) -> None:
@@ -103,8 +137,18 @@ class LiveBytes(TorchDispatchMode):
         out = func(*args, **(kwargs or {}))
         ins = tensors_of((args, kwargs or {}))
         outs = tensors_of(out)
-        self.accessed += sum(_nbytes(t) for t in ins) \
-            + sum(_nbytes(t) for t in outs)
+        out_bytes = sum(_nbytes(t) for t in outs)
+        nb = sum(_nbytes(t) for t in ins) + out_bytes
+        self.accessed += nb
+        if ins or outs:                  # (not the profiler's markers)
+            row = self.ops.setdefault(str(func._overloadpacket),
+                                      {"bytes": 0, "calls": 0,
+                                       "example": ""})
+            row["bytes"] += nb
+            row["calls"] += 1
+            if row["calls"] == 1 or out_bytes > 1e8:
+                t = (outs or ins)[0]
+                row["example"] = shape_str(t.dtype, t.shape)
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None and ins:
             dt = str(ins[0].dtype).replace("torch.", "")
@@ -150,6 +194,7 @@ def count_call(fn, args: tuple, mesh=None) -> Dict[str, Any]:
         "flops": float(sum(live.flops.values())),
         "flops_by_dtype": dict(live.flops),
         "bytes_accessed": float(live.accessed),
+        "op_table": {k: dict(v) for k, v in live.ops.items()},
         "kernels": {k: dict(v) for k, v in
                     build.META_WORK.by_kernel.items()},
     }
@@ -158,6 +203,7 @@ def count_call(fn, args: tuple, mesh=None) -> Dict[str, Any]:
         res["bytes_accessed"] += w["bytes"]
     if mesh is not None:
         res["collectives"] = mesh.collective_totals()
+        res["collective_table"] = collective_table(mesh.records)
         res["notes"] = list(getattr(mesh, "notes", []))
     del out, outs
     return res

@@ -600,15 +600,22 @@ def test_grouped_driver_edge_cases_match_plain(dev, kind, metric, b, k_pad):
 
 @pytest.mark.parametrize("kind,d,k_pad", [
     ("f32", 960, 256), ("bf16", 960, 256),    # GIST-960's width
-    ("f32", 1892, 256), ("bf16", 1888, 256),  # the widest rows that fit
+    ("f32", 1892, 256), ("bf16", 1888, 256),  # the widest whole queries
     ("q8", 256, 256), ("q8", 768, 256),
-    ("q8", 1036, 256),        # the widest the plain version holds exact
+    ("q8", 1036, 256),        # the widest the plain version sums in f32
     ("f32", 130, 1024), ("q8", 132, 1024),    # buffers in global memory
+    # past those widths the queries are staged a column chunk a stage
+    ("f32", 1893, 256), ("bf16", 1893, 256),  # no 16-byte vectors
+    ("f32", 3072, 256), ("bf16", 3072, 256),  # text-embedding-3-large
+    ("f32", 4096, 256), ("bf16", 4096, 256),  # e5-mistral-7b
+    ("f32", 3072, 1024), ("bf16", 4096, 16),  # buffers global, shared
+    ("q8", 4836, 256), ("q8", 8192, 256), ("q8", 8192, 1024),
 ])
 def test_grouped_driver_wide_rows_match_plain(dev, kind, d, k_pad):
     """Wide rows, staged in column chunks, with the top-K buffers in
-    shared or global memory as the block's shared memory allows, against
-    the plain versions (q8 bit for bit)."""
+    shared or global memory and the tile's queries whole or in column
+    chunks as the block's shared memory allows, against the plain
+    versions (q8 bit for bit)."""
     rng = np.random.default_rng(d + k_pad)
     p, s, b, u = 8, 150, 37, 6
     sel = torch.as_tensor(rng.choice(p, u, replace=False).astype(np.int32),
@@ -638,30 +645,43 @@ def test_grouped_driver_wide_rows_match_plain(dev, kind, d, k_pad):
 
 
 def test_grouped_driver_width_limits_on_the_card(dev):
-    """Where a block keeps its top-K buffers (0 shared memory, 1 global,
-    2 the rows do not fit) at the widths the docs name, and the wrappers
-    raise ValueError past the widest rows."""
+    """How a block lays out its shared memory (0 top-K buffers in shared
+    memory, ``GLOBAL_BUFS`` in global, ``| QUERY_CHUNKS`` the queries by
+    column chunks) at the widths the docs name: today's layouts wherever
+    whole queries fit, query chunks only past that, and a layout at every
+    width (the old 2, "too wide", never comes back)."""
     at = torch.cuda.current_device()
+    g, c = sti.GLOBAL_BUFS, sti.QUERY_CHUNKS
     assert sti._placement("f32", 128, 128, at) == 0     # the main path
     assert sti._placement("q8", 128, 256, at) == 0      # the int8 path
     assert sti._placement("f32", 868, 256, at) == 0
-    assert sti._placement("f32", 872, 256, at) == 1
+    assert sti._placement("f32", 872, 256, at) == g
     assert sti._placement("q8", 736, 256, at) == 0
-    assert sti._placement("q8", 740, 256, at) == 1
-    assert sti._placement("f32", 128, 512, at) == 1     # buffers > 64 KB
-    assert sti._placement("f32", 1892, sti.K_MAX, at) == 1
-    assert sti._placement("f32", 1896, 16, at) == 2
-    assert sti._placement("bf16", 1888, 16, at) == 1
-    assert sti._placement("bf16", 1896, 16, at) == 2
-    assert sti._placement("q8", 4832, 16, at) == 1
-    assert sti._placement("q8", 4836, 16, at) == 2
+    assert sti._placement("q8", 740, 256, at) == g
+    assert sti._placement("f32", 128, 512, at) == g     # buffers > 64 KB
+    assert sti._placement("f32", 1892, sti.K_MAX, at) == g
+    assert sti._placement("bf16", 1888, 16, at) == g
+    assert sti._placement("q8", 4832, 16, at) == g
+    assert sti._placement("f32", 1896, 16, at) == c
+    assert sti._placement("bf16", 1896, 16, at) == c
+    assert sti._placement("q8", 4836, 16, at) == c
+    assert sti._placement("f32", 3072, sti.K_MAX, at) == g | c
+    for kind in ("f32", "bf16", "q8"):
+        for k_pad in (16, 256, 1024, sti.K_MAX):
+            got = {sti._placement(kind, d, k_pad, at)
+                   for d in range(4, 16385, 4)}
+            assert got <= {0, g, c, g | c}, (kind, k_pad, got)
+    # the widths that used to raise now run
     data = torch.zeros((2, 8, 1896), device=dev)
     valid = torch.ones((2, 8), dtype=torch.bool, device=dev)
     sel = torch.arange(2, dtype=torch.int32, device=dev)
     qmask = torch.ones((3, 2), dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError, match="too wide"):
-        sti.scan_topk_indexed(data[0, :3].contiguous(), data, valid, sel,
-                              qmask, k_pad=16)
+    dk, ik = sti.scan_topk_indexed(data[0, :3].contiguous(), data, valid,
+                                   sel, qmask, k_pad=16)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, torch.zeros_like(dk))
+    assert torch.equal(ik, torch.arange(16, dtype=torch.int32,
+                                        device=dev).expand(3, 16))
 
 
 def test_int8_executor_on_the_card_launches_the_q8_kernel(dev):

@@ -611,6 +611,39 @@ def test_q8_plain_version_is_the_oracle_in_partition_order():
         assert (ids[::2] // 64 == lo).all() and (ids[1::2] // 64 == hi).all()
 
 
+@pytest.mark.parametrize("d", [1036, 1044, 8192, 65536])
+def test_q8_oracle_sums_exactly_at_any_width(d):
+    """Past d = 1,040 an int8 product's partial sums leave f32's exact
+    integers; the oracle then sums in f64 and rounds once, as the
+    kernel's int32 sum is converted: its distances equal those formed
+    from exact int64 products in the oracle's order."""
+    rng = np.random.default_rng(d)
+    p, s, b = 3, 5, 4
+    codes = torch.as_tensor(rng.integers(-127, 128, (p, s, d)),
+                            dtype=torch.int8)
+    q_codes = codes[2, :b].clone()      # rows' own codes: sums past 2^24
+    scales = torch.as_tensor(rng.random((p, s)) * 0.02 + 0.01,
+                             dtype=torch.float32)
+    q_scales = torch.as_tensor(rng.random(b) * 0.02 + 0.01,
+                               dtype=torch.float32)
+    aux = torch.as_tensor(rng.random((p, s)) * 10, dtype=torch.float32)
+    sel = torch.tensor([2, 0], dtype=torch.int32)
+    qc = torch.as_tensor(rng.normal(size=(b, 2)), dtype=torch.float32)
+    valid = torch.ones((p, s), dtype=torch.bool)
+    qmask = torch.ones((b, 2), dtype=torch.bool)
+    dist, idx = ref.scan_indexed_q8_ref(q_codes, q_scales, codes, scales,
+                                        aux, qc, valid, sel, qmask, 10)
+    dots = torch.einsum("usd,bd->bus",
+                        codes[sel.long()].long(), q_codes.long()).float()
+    want = (aux[sel.long()][None]
+            - 2.0 * (qc[:, :, None] + dots * q_scales[:, None, None]
+                     * scales[sel.long()][None])).reshape(b, -1)
+    flat = (sel.long()[:, None] * s + torch.arange(s)).reshape(-1)
+    pos = (flat[None, None, :] == idx.long()[..., None]).int().argmax(-1)
+    assert torch.equal(flat[pos], idx.long())
+    assert torch.equal(dist, want.gather(1, pos))
+
+
 # ---------------------------------------------------------------------------
 # kernel modules: dispatch, checks, launch counts, build
 # ---------------------------------------------------------------------------
