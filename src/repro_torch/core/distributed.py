@@ -51,7 +51,7 @@ from ..kernels.ref import MASK_DIST
 from . import geometry
 from .multiquery import (STORAGE_DTYPES, BatchResult, PlannerCache,
                          _batch_rho_fn, plan_batch, plan_rounds,
-                         run_round_loop)
+                         run_round_loop, to_host)
 from .snapshot import STORAGE, IndexSnapshot, split_blocks, to_storage
 
 if TYPE_CHECKING:
@@ -600,8 +600,8 @@ class ShardedQuakeEngine:
             qp, snap, selected, anchor,
             self._local_union(sel_cols, snap.num_partitions))
         # quakecheck: allow-sync(result boundary: BatchResult is a host contract)
-        d = d.double().cpu().numpy()[:b, :k]
-        ids = ids.cpu().numpy()[:b, :k]  # quakecheck: allow-sync(result boundary)
+        d = to_host(d.double())[:b, :k]
+        ids = to_host(ids)[:b, :k]  # quakecheck: allow-sync(result boundary)
         d = np.where(d >= MASK_DIST, np.inf, d)
         ids = np.where(np.isinf(d), -1, ids)
         sizes = self._host_sizes[sel_cols]
@@ -647,8 +647,8 @@ class ShardedQuakeEngine:
             scan_round, rounds=rounds, k_keep=self.cfg.k,
             device=self.device)
         # quakecheck: allow-sync(result boundary: BatchResult is a host contract)
-        dd = td.double().cpu().numpy()[:, :k]
-        ids = ti.cpu().numpy()[:, :k]  # quakecheck: allow-sync(result boundary)
+        dd = to_host(td.double())[:, :k]
+        ids = to_host(ti)[:, :k]  # quakecheck: allow-sync(result boundary)
         dd = np.where(dd >= MASK_DIST, np.inf, dd)
         ids = np.where(np.isinf(dd), -1, ids)
         return BatchResult(

@@ -49,6 +49,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..obs.tracing import count, span
 from . import cost_model as cm
 from . import kmeans
 from .cost_model import LatencyModel
@@ -188,6 +189,15 @@ class Maintainer:
     # ------------------------------------------------------------------
 
     def run(self, reset_stats: bool = True) -> MaintenanceReport:
+        """One pass over every level: a ``quake.maintenance`` span, with
+        its splits and merges counted, while the profiler records."""
+        with span("maintenance"):
+            rep = self._pass(reset_stats)
+            count("maintenance.splits", rep.splits)
+            count("maintenance.merges", rep.merges)
+            return rep
+
+    def _pass(self, reset_stats: bool) -> MaintenanceReport:
         idx = self.index
         version_before = idx.version
         rep = MaintenanceReport(cost_before=self.total_cost())

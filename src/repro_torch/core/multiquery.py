@@ -28,6 +28,12 @@ index's mutation journal: dirty-partition deltas patch only the touched
 rows; structural changes or capacity overflow rebuild it.  Storage is
 f32, bf16 or int8; an int8 snapshot is requantized by a full rebuild on
 every journal delta.
+
+While ``torch.profiler`` records, each stage is a ``quake.*`` span
+(``obs.tracing.span``: ``search_batch`` > ``snapshot``, ``plan``,
+``rounds`` > ``round`` > ``scan``/``merge``, ``result``) and every copy
+the host blocks on (``to_host``, ``to_device``) a ``quake.wait`` span;
+docs/observability.md has the tree.
 """
 from __future__ import annotations
 
@@ -42,12 +48,26 @@ import torch
 from .. import sanitize
 from ..kernels import ops
 from ..kernels.ref import MASK_DIST
+from ..obs.tracing import WAIT, count, span
 from . import aps as aps_mod
 from .index import QuakeIndex
 from .snapshot import STORAGE, IndexSnapshot
 
 STORAGE_DTYPES = tuple(STORAGE)
 U_BUCKET = 8        # union widths round up to a multiple of this
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A device->host copy the host waits on (a ``quake.wait`` span)."""
+    with span(WAIT):
+        return t.cpu().numpy()
+
+
+def to_device(a, device) -> torch.Tensor:
+    """A host->device copy from pageable memory, which synchronises the
+    stream (a ``quake.wait`` span)."""
+    with span(WAIT):
+        return torch.as_tensor(a, device=device)
 
 
 @dataclass
@@ -234,12 +254,14 @@ class PlannerCache:
 
 def _planner_tensors(index: QuakeIndex):
     dev = index.device
-    cents = torch.as_tensor(index.levels[0].centroids, device=dev)
+    cents = to_device(index.levels[0].centroids, dev)
     if index.config.metric == "ip":
-        aug = torch.as_tensor(index._augment_extra(0), device=dev)
+        aug = to_device(index._augment_extra(0), dev)
     else:
         aug = torch.zeros(cents.shape[0], dtype=torch.float64, device=dev)
-    return cents, aug, torch.tensor(index._beta_table, device=dev)
+    with span(WAIT):
+        table = torch.tensor(index._beta_table, device=dev)
+    return cents, aug, table
 
 
 # ---------------------------------------------------------------------------
@@ -305,14 +327,19 @@ def _aps_probe_counts_loop(index: QuakeIndex, q: np.ndarray, k: int,
 
 def _kth_for_plan(index, q, k, target, m, kth_med, cache):
     """The calibrated k-th distance: given, cached, or measured."""
-    if kth_med is None:
+    if kth_med is not None:
+        return kth_med
+    with span("plan.radius"):
         if cache is not None:
             kth_med = cache.get_radius(k, target)
-        if kth_med is None:
-            kth_med = _calibrate_kth_batched(index, q, k, m, cache=cache)
-            if cache is not None:
-                cache.put_radius(k, target, kth_med)
-    return kth_med
+        if kth_med is not None:
+            count("plan.radius.hits")
+            return kth_med
+        count("plan.radius.calibrations")
+        kth_med = _calibrate_kth_batched(index, q, k, m, cache=cache)
+        if cache is not None:
+            cache.put_radius(k, target, kth_med)
+        return kth_med
 
 
 def _aps_probe_counts_batched(index: QuakeIndex, q: np.ndarray, k: int,
@@ -326,16 +353,26 @@ def _aps_probe_counts_batched(index: QuakeIndex, q: np.ndarray, k: int,
     ``(B, n_consider)`` arrays and the probability cutoff.  Returns (sel,
     valid, counts, recall estimate) or, with ``full=True``, the
     :class:`RoundPlan`."""
-    b = q.shape[0]
-    cfg = index.config
     m = _aps_candidate_budget(index)
     kth_med = _kth_for_plan(index, q, k, target, m, kth_med, cache)
+    with span("plan.centroids"):
+        geo = _centroid_geo_batch(index, q, cent_norms)
+        order = np.argsort(geo, axis=1, kind="stable")[:, :m]
+        geo_sel = np.take_along_axis(geo, order, axis=1).astype(np.float64)
+    with span("plan.estimate"):
+        return _aps_cutoff_batched(index, q, target, kth_med, order,
+                                   geo_sel, full)
 
+
+def _aps_cutoff_batched(index: QuakeIndex, q: np.ndarray, target: float,
+                        kth_med: float, order: np.ndarray,
+                        geo_sel: np.ndarray, full: bool):
+    """The vectorized planner's estimator and probability cutoff over
+    each query's ``order`` (B, M) nearest candidates (``geo_sel`` their
+    geometry-space distances); ``_aps_probe_counts_batched``'s returns."""
+    b, m = order.shape
+    cfg = index.config
     cents = index.levels[0].centroids
-    geo = _centroid_geo_batch(index, q, cent_norms)
-    order = np.argsort(geo, axis=1, kind="stable")[:, :m]
-    geo_sel = np.take_along_axis(geo, order, axis=1).astype(np.float64)
-
     q_norm = np.sum(q.astype(np.float64) ** 2, axis=1)
     if np.isfinite(kth_med):
         if cfg.metric == "l2":
@@ -420,60 +457,66 @@ def _fused_plan_probes(q, cents, aug_extra, max_norm_sq: float,
     (B, M))."""
     b = q.shape[0]
     dev = q.device
-    cd, order = ops.scan_topk(q, cents, m, metric=metric, impl="auto")
-    order = order.long()
-    cd = cd.double()
-    if metric == "l2":
-        geo_sel = torch.clamp(cd, min=0.0)
-        rho_sq = torch.full((b,), max(kth_med, 0.0), dtype=torch.float64,
-                            device=dev)
-    else:
-        q2 = torch.sum(q.double() ** 2, dim=1)
-        geo_sel = torch.clamp(q2[:, None] + max_norm_sq + 2.0 * cd, min=0.0)
-        rho_sq = torch.clamp(q2 + max_norm_sq + 2.0 * kth_med, min=0.0)
-    if not math.isfinite(kth_med):
-        rho_sq = torch.full_like(rho_sq, math.inf)
-    if m == 1:
-        return (order, torch.ones(b, dtype=torch.int64, device=dev),
-                torch.full((b,), math.nan, dtype=torch.float64, device=dev),
-                geo_sel, torch.zeros((b, 1), dtype=torch.float64,
-                                     device=dev))
-    fallback = ~torch.isfinite(rho_sq) | (rho_sq <= 0)
+    with span("plan.centroids"):
+        cd, order = ops.scan_topk(q, cents, m, metric=metric, impl="auto")
+    with span("plan.estimate"):
+        order = order.long()
+        cd = cd.double()
+        if metric == "l2":
+            geo_sel = torch.clamp(cd, min=0.0)
+            rho_sq = torch.full((b,), max(kth_med, 0.0),
+                                dtype=torch.float64, device=dev)
+        else:
+            q2 = torch.sum(q.double() ** 2, dim=1)
+            geo_sel = torch.clamp(q2[:, None] + max_norm_sq + 2.0 * cd,
+                                  min=0.0)
+            rho_sq = torch.clamp(q2 + max_norm_sq + 2.0 * kth_med, min=0.0)
+        if not math.isfinite(kth_med):
+            rho_sq = torch.full_like(rho_sq, math.inf)
+        if m == 1:
+            return (order, torch.ones(b, dtype=torch.int64, device=dev),
+                    torch.full((b,), math.nan, dtype=torch.float64,
+                               device=dev),
+                    geo_sel, torch.zeros((b, 1), dtype=torch.float64,
+                                         device=dev))
+        fallback = ~torch.isfinite(rho_sq) | (rho_sq <= 0)
 
-    cg = cents[order].double()                            # (B, M, d)
-    d2 = torch.sum((cg - cg[:, :1, :]) ** 2, dim=2)
-    if metric == "ip":
-        e = aug_extra[order].double()
-        d2 = d2 + (e - e[:, :1]) ** 2
-    cc = torch.sqrt(torch.clamp(d2, min=0.0))
+        cg = cents[order].double()                            # (B, M, d)
+        d2 = torch.sum((cg - cg[:, :1, :]) ** 2, dim=2)
+        if metric == "ip":
+            e = aug_extra[order].double()
+            d2 = d2 + (e - e[:, :1]) ** 2
+        cc = torch.sqrt(torch.clamp(d2, min=0.0))
 
-    valid = torch.ones((b, m), dtype=torch.bool, device=dev)
-    valid[:, 0] = False
-    p0, probs = aps_mod.estimate_probs_batch(
-        geo_sel[:, 0], geo_sel, cc, rho_sq, table, valid)
+        valid = torch.ones((b, m), dtype=torch.bool, device=dev)
+        valid[:, 0] = False
+        p0, probs = aps_mod.estimate_probs_batch(
+            geo_sel[:, 0], geo_sel, cc, rho_sq, table, valid)
 
-    neg = -probs
-    neg[:, 0] = math.inf
-    desc = torch.argsort(neg, dim=1, stable=True)[:, :m - 1]
-    r_cum = p0[:, None] + torch.cumsum(torch.gather(probs, 1, desc), dim=1)
-    reached = r_cum >= target
-    extra = torch.where(reached.any(dim=1),
-                        torch.argmax(reached.to(torch.int8), dim=1) + 1,
-                        m - 1)
-    counts = torch.where(p0 >= target, 1, torch.clamp(1 + extra, max=m))
-    counts = torch.where(fallback, m, counts).to(torch.int64)
+        neg = -probs
+        neg[:, 0] = math.inf
+        desc = torch.argsort(neg, dim=1, stable=True)[:, :m - 1]
+        r_cum = p0[:, None] + torch.cumsum(torch.gather(probs, 1, desc),
+                                           dim=1)
+        reached = r_cum >= target
+        extra = torch.where(reached.any(dim=1),
+                            torch.argmax(reached.to(torch.int8), dim=1) + 1,
+                            m - 1)
+        counts = torch.where(p0 >= target, 1, torch.clamp(1 + extra, max=m))
+        counts = torch.where(fallback, m, counts).to(torch.int64)
 
-    def _seq_align(a):
-        tail = torch.gather(a, 1, desc)
-        return torch.where(fallback[:, None], a,
-                           torch.cat([a[:, :1], tail], dim=1))
-    seq = _seq_align(order)
-    geo_seq = _seq_align(geo_sel)
-    cc_seq = _seq_align(cc)
-    r_at = torch.gather(r_cum, 1, torch.clamp(counts - 2, min=0)[:, None])
-    r_est = torch.where(counts <= 1, p0, r_at[:, 0])
-    r_est = torch.where(fallback, math.nan, r_est)
-    return seq, counts, r_est, geo_seq, cc_seq
+        def _seq_align(a):
+            tail = torch.gather(a, 1, desc)
+            return torch.where(fallback[:, None], a,
+                               torch.cat([a[:, :1], tail], dim=1))
+        seq = _seq_align(order)
+        geo_seq = _seq_align(geo_sel)
+        cc_seq = _seq_align(cc)
+        r_at = torch.gather(r_cum, 1,
+                            torch.clamp(counts - 2, min=0)[:, None])
+        r_est = torch.where(counts <= 1, p0, r_at[:, 0])
+        r_est = torch.where(fallback, math.nan, r_est)
+        return seq, counts, r_est, geo_seq, cc_seq
 
 
 def _aps_probe_counts_fused(index: QuakeIndex, q: np.ndarray, k: int,
@@ -492,20 +535,20 @@ def _aps_probe_counts_fused(index: QuakeIndex, q: np.ndarray, k: int,
     else:
         cents_d, aug_d, table_d = _planner_tensors(index)
     seq_d, counts_d, r_d, geo_d, cc_d = _fused_plan_probes(
-        torch.as_tensor(q, device=index.device), cents_d, aug_d,
+        to_device(q, index.device), cents_d, aug_d,
         float(index._max_norm_sq), float(kth_med), table_d, float(target),
         m=m, metric=index.config.metric)
 
     # the plan contract (round chunking, the host re-estimator) is
     # host-side: one pull per plan at this boundary
     # quakecheck: allow-sync(fused planner boundary: host plan contract)
-    counts = counts_d.cpu().numpy()
-    seq = seq_d.cpu().numpy()  # quakecheck: allow-sync(fused planner boundary)
-    r_est = r_d.cpu().numpy()  # quakecheck: allow-sync(fused planner boundary)
+    counts = to_host(counts_d)
+    seq = to_host(seq_d)  # quakecheck: allow-sync(fused planner boundary)
+    r_est = to_host(r_d)  # quakecheck: allow-sync(fused planner boundary)
     if full:
         return RoundPlan(seq=seq, counts=counts,
-                         geo=geo_d.cpu().numpy(),  # quakecheck: allow-sync(fused planner boundary)
-                         cc=cc_d.cpu().numpy(),    # quakecheck: allow-sync(fused planner boundary)
+                         geo=to_host(geo_d),  # quakecheck: allow-sync(fused planner boundary)
+                         cc=to_host(cc_d),    # quakecheck: allow-sync(fused planner boundary)
                          recall_est=r_est, seq_dev=seq_d)
     n_max = int(counts.max())
     vmask = np.arange(n_max)[None, :] < counts[:, None]
@@ -555,55 +598,59 @@ def plan_batch(index: QuakeIndex, q: np.ndarray, k: int,
                          nprobe=np.zeros(0, dtype=np.int64), n_real=0,
                          planned=np.zeros(0, dtype=np.int64))
 
-    r_est = None
-    if nprobe is not None:
-        cd = _centroid_dists(index, q, cent_norms)
-        n = int(max(1, min(nprobe, p)))
-        if n < p:
-            sel_q = np.argpartition(cd, n - 1, axis=1)[:, :n]
+    with span("plan"):
+        r_est = None
+        if nprobe is not None:
+            with span("plan.centroids"):
+                cd = _centroid_dists(index, q, cent_norms)
+                n = int(max(1, min(nprobe, p)))
+                if n < p:
+                    sel_q = np.argpartition(cd, n - 1, axis=1)[:, :n]
+                else:
+                    sel_q = np.broadcast_to(np.arange(p), (b, p)).copy()
+                qvalid = np.ones((b, n), dtype=bool)
+                counts = np.full(b, n, dtype=np.int64)
+                nearest = np.argmin(cd, axis=1)
         else:
-            sel_q = np.broadcast_to(np.arange(p), (b, p)).copy()
-        qvalid = np.ones((b, n), dtype=bool)
-        counts = np.full(b, n, dtype=np.int64)
-        nearest = np.argmin(cd, axis=1)
-    else:
-        target = recall_target if recall_target is not None \
-            else index.config.recall_target
-        if planner == "loop":
-            sel_q, qvalid, counts = _aps_probe_counts_loop(
-                index, q, k, target)
-        elif planner == "fused":
-            sel_q, qvalid, counts, r_est = _aps_probe_counts_fused(
-                index, q, k, target, cache=cache)
-        else:
-            sel_q, qvalid, counts, r_est = _aps_probe_counts_batched(
-                index, q, k, target, cent_norms=cent_norms, cache=cache)
-        nearest = sel_q[:, 0]
+            target = recall_target if recall_target is not None \
+                else index.config.recall_target
+            if planner == "loop":
+                sel_q, qvalid, counts = _aps_probe_counts_loop(
+                    index, q, k, target)
+            elif planner == "fused":
+                sel_q, qvalid, counts, r_est = _aps_probe_counts_fused(
+                    index, q, k, target, cache=cache)
+            else:
+                sel_q, qvalid, counts, r_est = _aps_probe_counts_batched(
+                    index, q, k, target, cent_norms=cent_norms, cache=cache)
+            nearest = sel_q[:, 0]
 
-    hit = np.zeros(p, dtype=bool)
-    hit[sel_q[qvalid]] = True
-    n_hits = int(hit.sum())
-    if union_cap:
-        # floor the cap at the distinct-anchor count, so no query loses
-        # its whole probe set to the cap
-        n_anchor = int(len(np.unique(nearest)))
-        n_real = min(n_hits, max(union_cap, n_anchor))
-    else:
-        n_real = n_hits
-    n_real = max(n_real, 1)
-    u_pad = max(-(-n_real // u_bucket) * u_bucket, 1)
-    sel_d, qmask_d = _pack_plan(
-        torch.as_tensor(sel_q, device=dev),
-        torch.as_tensor(qvalid, device=dev),
-        torch.as_tensor(nearest, device=dev), n_real, p=p, u_pad=u_pad)
-    # introspection reads the plan on the host: one pull at the boundary
-    # quakecheck: allow-sync(host plan mirror for introspection)
-    sel = sel_d.long().cpu().numpy()
-    qmask = qmask_d.cpu().numpy()  # quakecheck: allow-sync(host plan mirror)
-    eff = qmask[:, :n_real].sum(axis=1).astype(np.int64)
-    if r_est is not None:
-        # a cap that truncated a query's probes invalidates its estimate
-        r_est = np.where(eff < counts, np.nan, r_est)
+        with span("plan.pack"):
+            hit = np.zeros(p, dtype=bool)
+            hit[sel_q[qvalid]] = True
+            n_hits = int(hit.sum())
+            if union_cap:
+                # floor the cap at the distinct-anchor count, so no query
+                # loses its whole probe set to the cap
+                n_anchor = int(len(np.unique(nearest)))
+                n_real = min(n_hits, max(union_cap, n_anchor))
+            else:
+                n_real = n_hits
+            n_real = max(n_real, 1)
+            u_pad = max(-(-n_real // u_bucket) * u_bucket, 1)
+            sel_d, qmask_d = _pack_plan(
+                to_device(sel_q, dev), to_device(qvalid, dev),
+                to_device(nearest, dev), n_real, p=p, u_pad=u_pad)
+            # introspection reads the plan on the host: one pull at the
+            # boundary
+            # quakecheck: allow-sync(host plan mirror for introspection)
+            sel = to_host(sel_d.long())
+            qmask = to_host(qmask_d)  # quakecheck: allow-sync(plan mirror)
+            eff = qmask[:, :n_real].sum(axis=1).astype(np.int64)
+            if r_est is not None:
+                # a cap that truncated a query's probes invalidates its
+                # estimate
+                r_est = np.where(eff < counts, np.nan, r_est)
     return BatchPlan(sel=sel, qmask=qmask, nprobe=eff, n_real=n_real,
                      planned=counts,
                      anchor=np.asarray(nearest, dtype=np.int64),
@@ -621,12 +668,13 @@ def plan_rounds(index: QuakeIndex, q: np.ndarray, k: int, target: float,
     """APS probe planning for the round executor: scan-ordered candidate
     sequences plus seq-aligned estimator inputs.  ``planner`` is
     "vectorized" (host) or "fused" (device)."""
-    if planner == "fused":
-        return _aps_probe_counts_fused(index, q, k, target, cache=cache,
-                                       full=True)
-    return _aps_probe_counts_batched(index, q, k, target,
-                                     cent_norms=cent_norms, cache=cache,
-                                     full=True)
+    with span("plan"):
+        if planner == "fused":
+            return _aps_probe_counts_fused(index, q, k, target, cache=cache,
+                                           full=True)
+        return _aps_probe_counts_batched(index, q, k, target,
+                                         cent_norms=cent_norms, cache=cache,
+                                         full=True)
 
 
 def _round_windows(n_max: int, rounds: Optional[int] = None):
@@ -671,77 +719,83 @@ def run_round_loop(plan: RoundPlan, k: int, target: float, table,
     Returns (top dists, top ids — device, ascending — nprobe (B,),
     recall_est (B,), rounds executed, per-round trace, totals).
     """
-    b, m = plan.seq.shape
-    counts = plan.counts
-    k_keep = k if k_keep is None else k_keep
-    n_max = int(counts.max(initial=1))
-    wins = _round_windows(n_max, rounds)
-    td = torch.full((b, k_keep), MASK_DIST, dtype=torch.float32,
-                    device=device)
-    ti = torch.full((b, k_keep), -1, dtype=torch.int32, device=device)
-    live = np.ones(b, dtype=bool)
-    r_est = np.asarray(plan.recall_est, dtype=np.float64).copy()
-    scanned = np.zeros((b, m), dtype=bool)
-    valid = np.ones((b, m), dtype=bool)
-    valid[:, 0] = False
-    cols = np.arange(m)[None, :]
-    within = cols < counts[:, None]
-    p_hi = int(plan.seq.max()) + 1
-    # the pinned per-round trace schema: parallel per-round lists plus
-    # two scalar outcome flags
-    trace = {"round_live": [], "round_partitions": [],
-             "round_vectors": [], "round_comparisons": [],
-             "round_kth": [], "round_wall_s": [],
-             "budget_expired": False, "timed_out_rows": 0}
-    clock = clock or time.perf_counter
-    t0 = clock()
-    n_rounds = 0
-    for c0, c1 in wins:
-        if not live.any():
-            break
-        if (deadline_s is not None and n_rounds > 0
-                and clock() - t0 >= deadline_s):
-            # budget spent: the live rows keep their running top-k
-            trace["budget_expired"] = True
-            trace["timed_out_rows"] = int(live.sum())
-            break
-        avail = live[:, None] & within & ~scanned
-        base = avail & (cols >= c0) & (cols < c1)
-        if not base.any():
-            continue          # window already consumed by riding
-        kept = np.unique(plan.seq[base])
-        in_union = np.zeros(p_hi, dtype=bool)
-        in_union[kept] = True
-        take = avail & in_union[plan.seq]
-        scanned |= take
-        n_rounds += 1
-        t_round = clock()
-        trace["round_live"].append(int(live.sum()))
-        d, i, st = scan_round(take, kept)
-        td, ti = ops.topk_merge(td, ti, d, i, k_keep)
-        for key in ("partitions", "vectors", "comparisons"):
-            trace[f"round_{key}"].append(int(st[key]))
-        rows = np.nonzero(live)[0]
-        # quakecheck: allow-sync(Algorithm 2's per-round kth-distance pull: the early-exit recall re-estimate is host-side by design)
-        kth = td[:, k - 1].double().cpu().numpy()[rows]
-        full_heap = kth < MASK_DIST
-        rho_sq = np.where(full_heap, rho_fn(kth, rows), np.inf)
-        p0, probs = aps_mod.estimate_probs_batch(
-            plan.geo[rows, 0], plan.geo[rows], plan.cc[rows], rho_sq,
-            table, valid[rows])
-        r = p0 + np.where(scanned[rows] & valid[rows], probs,
-                          0.0).sum(axis=1)
-        r_est[rows[full_heap]] = r[full_heap]
-        live[rows[full_heap & (r >= target)]] = False
-        trace["round_kth"].append(
-            float(np.median(kth[full_heap])) if full_heap.any() else None)
-        trace["round_wall_s"].append(clock() - t_round)
-    stats = {k_: int(np.sum(v)) for k_, v in
-             (("partitions", trace["round_partitions"]),
-              ("vectors", trace["round_vectors"]),
-              ("comparisons", trace["round_comparisons"]))}
-    return (td, ti, scanned.sum(axis=1).astype(np.int64), r_est,
-            n_rounds, trace, stats)
+    with span("rounds"):
+        b, m = plan.seq.shape
+        counts = plan.counts
+        k_keep = k if k_keep is None else k_keep
+        n_max = int(counts.max(initial=1))
+        wins = _round_windows(n_max, rounds)
+        td = torch.full((b, k_keep), MASK_DIST, dtype=torch.float32,
+                        device=device)
+        ti = torch.full((b, k_keep), -1, dtype=torch.int32, device=device)
+        live = np.ones(b, dtype=bool)
+        r_est = np.asarray(plan.recall_est, dtype=np.float64).copy()
+        scanned = np.zeros((b, m), dtype=bool)
+        valid = np.ones((b, m), dtype=bool)
+        valid[:, 0] = False
+        cols = np.arange(m)[None, :]
+        within = cols < counts[:, None]
+        p_hi = int(plan.seq.max()) + 1
+        # the pinned per-round trace schema: parallel per-round lists plus
+        # two scalar outcome flags
+        trace = {"round_live": [], "round_partitions": [],
+                 "round_vectors": [], "round_comparisons": [],
+                 "round_kth": [], "round_wall_s": [],
+                 "budget_expired": False, "timed_out_rows": 0}
+        clock = clock or time.perf_counter
+        t0 = clock()
+        n_rounds = 0
+        for c0, c1 in wins:
+            if not live.any():
+                break
+            if (deadline_s is not None and n_rounds > 0
+                    and clock() - t0 >= deadline_s):
+                # budget spent: the live rows keep their running top-k
+                trace["budget_expired"] = True
+                trace["timed_out_rows"] = int(live.sum())
+                break
+            avail = live[:, None] & within & ~scanned
+            base = avail & (cols >= c0) & (cols < c1)
+            if not base.any():
+                continue          # window already consumed by riding
+            with span("round", round=n_rounds):
+                with span("round.select"):
+                    kept = np.unique(plan.seq[base])
+                    in_union = np.zeros(p_hi, dtype=bool)
+                    in_union[kept] = True
+                    take = avail & in_union[plan.seq]
+                    scanned |= take
+                n_rounds += 1
+                t_round = clock()
+                trace["round_live"].append(int(live.sum()))
+                d, i, st = scan_round(take, kept)
+                with span("merge"):
+                    td, ti = ops.topk_merge(td, ti, d, i, k_keep)
+                with span("round.estimate"):
+                    for key in ("partitions", "vectors", "comparisons"):
+                        trace[f"round_{key}"].append(int(st[key]))
+                    rows = np.nonzero(live)[0]
+                    # quakecheck: allow-sync(Algorithm 2's per-round kth-distance pull: the early-exit recall re-estimate is host-side by design)
+                    kth = to_host(td[:, k - 1].double())[rows]
+                    full_heap = kth < MASK_DIST
+                    rho_sq = np.where(full_heap, rho_fn(kth, rows), np.inf)
+                    p0, probs = aps_mod.estimate_probs_batch(
+                        plan.geo[rows, 0], plan.geo[rows], plan.cc[rows],
+                        rho_sq, table, valid[rows])
+                    r = p0 + np.where(scanned[rows] & valid[rows], probs,
+                                      0.0).sum(axis=1)
+                    r_est[rows[full_heap]] = r[full_heap]
+                    live[rows[full_heap & (r >= target)]] = False
+                    trace["round_kth"].append(
+                        float(np.median(kth[full_heap])) if full_heap.any()
+                        else None)
+                trace["round_wall_s"].append(clock() - t_round)
+        stats = {k_: int(np.sum(v)) for k_, v in
+                 (("partitions", trace["round_partitions"]),
+                  ("vectors", trace["round_vectors"]),
+                  ("comparisons", trace["round_comparisons"]))}
+        return (td, ti, scanned.sum(axis=1).astype(np.int64), r_est,
+                n_rounds, trace, stats)
 
 
 def _batch_rho_fn(index: QuakeIndex, q: np.ndarray):
@@ -833,40 +887,42 @@ class BatchedSearchExecutor:
     def refresh(self):
         """Full rebuild of the device snapshot.  The slot capacity is
         sticky: a rebuild never shrinks it below the previous one's."""
-        lvl0 = self.index.levels[0]
-        max_sz = int(max((len(v) for v in lvl0.vectors), default=0))
-        cap = max(int(math.ceil(max_sz * max(self.headroom, 1.0))), 1)
-        if self._snap is not None:
-            cap = max(cap, int(self._snap.capacity))
-        pad_to = self.part_bucket
-        if self.part_bucket > 1:
-            # sticky too, with 25% growth slack; an absolute target that
-            # covers the live count (from_index rounds up to a multiple)
-            pad_to = (-(-int(lvl0.num_partitions * 1.25)
-                        // self.part_bucket) * self.part_bucket)
+        with span("snapshot.rebuild"):
+            lvl0 = self.index.levels[0]
+            max_sz = int(max((len(v) for v in lvl0.vectors), default=0))
+            cap = max(int(math.ceil(max_sz * max(self.headroom, 1.0))), 1)
             if self._snap is not None:
-                pad_to = max(pad_to, int(self._snap.num_partitions))
-            pad_to = max(pad_to, lvl0.num_partitions)
-        self._snap = None        # drop the old tensors before the new ones
-        snap = IndexSnapshot.from_index(
-            self.index, capacity=cap, dtype=STORAGE[self.storage_dtype],
-            pad_partitions_to=pad_to)
-        self._valid = snap.ids >= 0
-        self._flat_ids = snap.ids.cpu().numpy().reshape(-1)
-        self._sizes = snap.sizes.cpu().numpy()
-        if self.storage_dtype == "int8":
-            if self.int8_rerank:
-                sizes = lvl0.sizes().astype(np.int64)
-                self._mirror = np.concatenate(
-                    [np.asarray(v, dtype=np.float32) for v in lvl0.vectors]
-                    + [np.zeros((0, self.index.dim), np.float32)])
-                self._mirror_base = np.concatenate(
-                    [[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
-        self._snap = snap
-        self.planner_cache.ensure_fresh()
-        self._key = self._fingerprint()
-        self.full_rebuilds += 1
-        return self._snap
+                cap = max(cap, int(self._snap.capacity))
+            pad_to = self.part_bucket
+            if self.part_bucket > 1:
+                # sticky too, with 25% growth slack; an absolute target that
+                # covers the live count (from_index rounds up to a multiple)
+                pad_to = (-(-int(lvl0.num_partitions * 1.25)
+                            // self.part_bucket) * self.part_bucket)
+                if self._snap is not None:
+                    pad_to = max(pad_to, int(self._snap.num_partitions))
+                pad_to = max(pad_to, lvl0.num_partitions)
+            self._snap = None    # drop the old tensors before the new ones
+            snap = IndexSnapshot.from_index(
+                self.index, capacity=cap, dtype=STORAGE[self.storage_dtype],
+                pad_partitions_to=pad_to)
+            self._valid = snap.ids >= 0
+            self._flat_ids = to_host(snap.ids).reshape(-1)
+            self._sizes = to_host(snap.sizes)
+            if self.storage_dtype == "int8":
+                if self.int8_rerank:
+                    sizes = lvl0.sizes().astype(np.int64)
+                    self._mirror = np.concatenate(
+                        [np.asarray(v, dtype=np.float32) for v in lvl0.vectors]
+                        + [np.zeros((0, self.index.dim), np.float32)])
+                    self._mirror_base = np.concatenate(
+                        [[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+            self._snap = snap
+            self.planner_cache.ensure_fresh()
+            self._key = self._fingerprint()
+            self.full_rebuilds += 1
+            count("snapshot.full_rebuilds")
+            return self._snap
 
     def _refresh_delta(self, delta) -> bool:
         """Patch the dirty partition rows instead of a rebuild.  False when
@@ -895,16 +951,16 @@ class BatchedSearchExecutor:
             return False
         # the executor owns its snapshot exclusively: patch in place
         self._snap = self._snap.apply_delta(patch, donate=True)
-        rows = torch.as_tensor(patch.rows.astype(np.int64),
-                               device=self.device)
+        rows = to_device(patch.rows.astype(np.int64), self.device)
         self._valid.index_copy_(
-            0, rows, torch.as_tensor(patch.ids >= 0, device=self.device))
+            0, rows, to_device(patch.ids >= 0, self.device))
         self._flat_ids.reshape(self._snap.num_partitions, cap)[
             patch.rows] = patch.ids
         self._sizes[patch.rows] = patch.sizes
         self.planner_cache.ensure_fresh()   # refine deltas move centroids
         self._key = self._fingerprint()
         self.delta_refreshes += 1
+        count("snapshot.delta_refreshes")
         return True
 
     def release(self) -> None:
@@ -915,14 +971,19 @@ class BatchedSearchExecutor:
         self._key = None
 
     def snapshot(self):
-        if self._snap is None:
-            return self.refresh()
-        if self._key == self._fingerprint():
+        with span("snapshot"):
+            if self._snap is None:
+                return self.refresh()
+            if self._key == self._fingerprint():
+                return self._snap
+            delta = self.index.journal.delta_since(self._key[0])
+            patched = False
+            if delta is not None:
+                with span("snapshot.delta"):
+                    patched = self._refresh_delta(delta)
+            if not patched:
+                self.refresh()
             return self._snap
-        delta = self.index.journal.delta_since(self._key[0])
-        if delta is None or not self._refresh_delta(delta):
-            self.refresh()
-        return self._snap
 
     def _rerank_exact(self, q: np.ndarray, flat: np.ndarray, k: int
                       ) -> Tuple[np.ndarray, np.ndarray]:
@@ -971,59 +1032,73 @@ class BatchedSearchExecutor:
                                dists=np.zeros((0, k), dtype=np.float64),
                                nprobe=np.zeros(0, dtype=np.int64),
                                recall_estimate=np.zeros(0))
-        snap = self.snapshot()
-        impl = impl or self.impl
-        rounds = self.rounds if rounds is None else rounds
-        if rounds is not None and rounds < 1:
-            raise ValueError(f"rounds must be >= 1 or None, got {rounds}")
-        cap = self.union_cap if union_cap is None else union_cap
-        # early-exit rounds need APS: not nprobe-pinned, not rounds=1,
-        # not the loop planner, not union-capped (the cap is plan-level)
-        if nprobe is None and rounds != 1 and self.planner != "loop" \
-                and not cap:
-            target = recall_target if recall_target is not None \
-                else self.index.config.recall_target
-            return self._search_rounds(q, k, target, rounds, impl=impl,
-                                       snap=snap)
-        plan = plan_batch(self.index, q, k, nprobe=nprobe,
-                          recall_target=recall_target,
-                          u_bucket=self.u_bucket, union_cap=cap,
-                          planner=self.planner,
-                          cent_norms=self._cent_norms,
-                          cache=self.planner_cache)
-        dev = self.device
-        sel_dev = plan.sel_dev if plan.sel_dev is not None \
-            else torch.as_tensor(plan.sel, device=dev)
-        qmask_dev = plan.qmask_dev if plan.qmask_dev is not None \
-            else torch.as_tensor(plan.qmask, device=dev)
-        q_dev = torch.as_tensor(q, device=dev)
-        metric = self.index.config.metric
-        rerank = snap.scales is not None and self._mirror is not None
-        if snap.scales is not None:          # int8 residual codes
-            dd, flat = ops.scan_selected_topk_q8(
-                q_dev, snap.data, snap.scales, self._valid, sel_dev,
-                qmask_dev, 2 * k if rerank else k, metric=metric,
-                centroids=snap.centroids, impl=impl)
-        else:
-            dd, flat = ops.scan_selected_topk(
-                q_dev, snap.data, self._valid, sel_dev, qmask_dev, k,
-                metric=metric, impl=impl)
+        with span("search_batch"):
+            snap = self.snapshot()
+            impl = impl or self.impl
+            rounds = self.rounds if rounds is None else rounds
+            if rounds is not None and rounds < 1:
+                raise ValueError(
+                    f"rounds must be >= 1 or None, got {rounds}")
+            cap = self.union_cap if union_cap is None else union_cap
+            # early-exit rounds need APS: not nprobe-pinned, not rounds=1,
+            # not the loop planner, not union-capped (the cap is
+            # plan-level)
+            if nprobe is None and rounds != 1 and self.planner != "loop" \
+                    and not cap:
+                target = recall_target if recall_target is not None \
+                    else self.index.config.recall_target
+                return self._search_rounds(q, k, target, rounds, impl=impl,
+                                           snap=snap)
+            plan = plan_batch(self.index, q, k, nprobe=nprobe,
+                              recall_target=recall_target,
+                              u_bucket=self.u_bucket, union_cap=cap,
+                              planner=self.planner,
+                              cent_norms=self._cent_norms,
+                              cache=self.planner_cache)
+            dev = self.device
+            metric = self.index.config.metric
+            rerank = snap.scales is not None and self._mirror is not None
+            with span("scan"):
+                sel_dev = plan.sel_dev if plan.sel_dev is not None \
+                    else to_device(plan.sel, dev)
+                qmask_dev = plan.qmask_dev if plan.qmask_dev is not None \
+                    else to_device(plan.qmask, dev)
+                q_dev = to_device(q, dev)
+                if snap.scales is not None:          # int8 residual codes
+                    dd, flat = ops.scan_selected_topk_q8(
+                        q_dev, snap.data, snap.scales, self._valid, sel_dev,
+                        qmask_dev, 2 * k if rerank else k, metric=metric,
+                        centroids=snap.centroids, impl=impl)
+                else:
+                    dd, flat = ops.scan_selected_topk(
+                        q_dev, snap.data, self._valid, sel_dev, qmask_dev,
+                        k, metric=metric, impl=impl)
+            with span("result"):
+                dd, flat = self._result_rows(q, dd, flat, k, rerank)
+                sizes_sel = self._sizes[plan.sel[:plan.n_real]]
+                return BatchResult(
+                    ids=self._to_result_ids(flat), dists=dd,
+                    partitions_scanned=int(plan.n_real),
+                    vectors_scanned=int(sizes_sel.sum()),
+                    comparisons=int(
+                        (plan.qmask[:, :plan.n_real].astype(np.int64)
+                         * sizes_sel[None, :]).sum()),
+                    nprobe=plan.nprobe, recall_estimate=plan.recall_est)
+
+    def _result_rows(self, q: np.ndarray, dd: torch.Tensor,
+                     flat: torch.Tensor, k: int, rerank: bool
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """The scan's device top-k as host (dists (B, k), flat idx
+        (B, k)), ``inf`` on misses: pulled, or re-ranked exactly from
+        the host mirror (int8)."""
         if rerank:
             # quakecheck: allow-sync(int8 rerank gathers from the host f32 mirror)
-            dd, flat = self._rerank_exact(q, flat.cpu().numpy(), k)
+            dd, flat = self._rerank_exact(q, to_host(flat), k)
         else:
             # quakecheck: allow-sync(result boundary: BatchResult is a host contract)
-            dd = dd.double().cpu().numpy()
-            flat = flat.cpu().numpy()  # quakecheck: allow-sync(result boundary)
-        dd = np.where(dd >= MASK_DIST, np.inf, dd)
-        sizes_sel = self._sizes[plan.sel[:plan.n_real]]
-        return BatchResult(
-            ids=self._to_result_ids(flat), dists=dd,
-            partitions_scanned=int(plan.n_real),
-            vectors_scanned=int(sizes_sel.sum()),
-            comparisons=int((plan.qmask[:, :plan.n_real].astype(np.int64)
-                             * sizes_sel[None, :]).sum()),
-            nprobe=plan.nprobe, recall_estimate=plan.recall_est)
+            dd = to_host(dd.double())[:, :k]
+            flat = to_host(flat)[:, :k]  # quakecheck: allow-sync(result boundary)
+        return np.where(dd >= MASK_DIST, np.inf, dd), flat
 
     def scan_probe_round(self, q_dev, seq_dev, take: np.ndarray,
                          kept: np.ndarray, k_keep: int, snap=None,
@@ -1040,39 +1115,41 @@ class BatchedSearchExecutor:
         (``u_bucket * 2^i``) instead of linear ``u_bucket`` steps.  With
         ``seq_host`` the comparison count is exact."""
         snap = self.snapshot() if snap is None else snap
-        # the snapshot's (padded) partition count: stable across rebuilds
-        # when part_bucket > 1
-        p = max(self.index.levels[0].num_partitions,
-                int(snap.num_partitions))
-        prio0 = torch.zeros(p, dtype=torch.int32, device=self.device)
-        n_real = max(len(kept), 1)
-        u_pad = max(-(-n_real // self.u_bucket) * self.u_bucket, 1)
-        if u_pow2:
-            u_pad = self.u_bucket * ops._next_pow2(
-                -(-n_real // self.u_bucket))
-        with sanitize.allow_sync("explicit upload of the round's take mask"):
-            take_dev = torch.as_tensor(take, device=self.device)
-        sel_dev, qmask_dev = ops.pack_round_masked(
-            seq_dev, take_dev, prio0, n_real, p=p, u_pad=u_pad)
-        sizes_kept = self._sizes[np.asarray(kept, dtype=np.int64)]
-        vectors = int(sizes_kept.sum())
-        if seq_host is not None:
-            comparisons = int(self._sizes[seq_host[take]].sum())
-        else:
-            comparisons = vectors
-        st = {"partitions": int(n_real), "vectors": vectors,
-              "comparisons": comparisons}
-        impl = impl or self.impl
-        if snap.scales is not None:          # int8 residual codes
-            d, flat = ops.scan_selected_topk_q8(
-                q_dev, snap.data, snap.scales, self._valid, sel_dev,
-                qmask_dev, k_keep, metric=self.index.config.metric,
-                centroids=snap.centroids, impl=impl)
-        else:
-            d, flat = ops.scan_selected_topk(
-                q_dev, snap.data, self._valid, sel_dev, qmask_dev, k_keep,
-                metric=self.index.config.metric, impl=impl)
-        return d, flat, st
+        with span("scan"):
+            # the snapshot's (padded) partition count: stable across
+            # rebuilds when part_bucket > 1
+            p = max(self.index.levels[0].num_partitions,
+                    int(snap.num_partitions))
+            prio0 = torch.zeros(p, dtype=torch.int32, device=self.device)
+            n_real = max(len(kept), 1)
+            u_pad = max(-(-n_real // self.u_bucket) * self.u_bucket, 1)
+            if u_pow2:
+                u_pad = self.u_bucket * ops._next_pow2(
+                    -(-n_real // self.u_bucket))
+            with sanitize.allow_sync(
+                    "explicit upload of the round's take mask"):
+                take_dev = to_device(take, self.device)
+            sel_dev, qmask_dev = ops.pack_round_masked(
+                seq_dev, take_dev, prio0, n_real, p=p, u_pad=u_pad)
+            sizes_kept = self._sizes[np.asarray(kept, dtype=np.int64)]
+            vectors = int(sizes_kept.sum())
+            if seq_host is not None:
+                comparisons = int(self._sizes[seq_host[take]].sum())
+            else:
+                comparisons = vectors
+            st = {"partitions": int(n_real), "vectors": vectors,
+                  "comparisons": comparisons}
+            impl = impl or self.impl
+            if snap.scales is not None:          # int8 residual codes
+                d, flat = ops.scan_selected_topk_q8(
+                    q_dev, snap.data, snap.scales, self._valid, sel_dev,
+                    qmask_dev, k_keep, metric=self.index.config.metric,
+                    centroids=snap.centroids, impl=impl)
+            else:
+                d, flat = ops.scan_selected_topk(
+                    q_dev, snap.data, self._valid, sel_dev, qmask_dev,
+                    k_keep, metric=self.index.config.metric, impl=impl)
+            return d, flat, st
 
     def _search_rounds(self, q: np.ndarray, k: int, target: float,
                        rounds: Optional[int], impl: Optional[str] = None,
@@ -1083,9 +1160,9 @@ class BatchedSearchExecutor:
         rplan = plan_rounds(idx, q, k, target, planner=self.planner,
                             cache=self.planner_cache,
                             cent_norms=self._cent_norms)
-        q_dev = torch.as_tensor(q, device=self.device)
+        q_dev = to_device(q, self.device)
         seq_dev = rplan.seq_dev if rplan.seq_dev is not None \
-            else torch.as_tensor(rplan.seq, device=self.device)
+            else to_device(rplan.seq, self.device)
         rerank = snap.scales is not None and self._mirror is not None
         k_keep = 2 * k if rerank else k
 
@@ -1097,21 +1174,15 @@ class BatchedSearchExecutor:
         td, ti, nprobe, r_est, n_rounds, trace, stats = run_round_loop(
             rplan, k, target, idx._beta_table, _batch_rho_fn(idx, q),
             scan_round, rounds=rounds, k_keep=k_keep, device=self.device)
-        if rerank:
-            # quakecheck: allow-sync(int8 rerank gathers from the host f32 mirror)
-            dd, flat = self._rerank_exact(q, ti.cpu().numpy(), k)
-        else:
-            # quakecheck: allow-sync(result boundary: BatchResult is a host contract)
-            dd = td.double().cpu().numpy()[:, :k]
-            flat = ti.cpu().numpy()[:, :k]  # quakecheck: allow-sync(result boundary)
-        dd = np.where(dd >= MASK_DIST, np.inf, dd)
-        return BatchResult(
-            ids=self._to_result_ids(flat), dists=dd,
-            partitions_scanned=stats["partitions"],
-            vectors_scanned=stats["vectors"],
-            comparisons=stats["comparisons"],
-            nprobe=nprobe, recall_estimate=r_est,
-            rounds=n_rounds, round_trace=trace)
+        with span("result"):
+            dd, flat = self._result_rows(q, td, ti, k, rerank)
+            return BatchResult(
+                ids=self._to_result_ids(flat), dists=dd,
+                partitions_scanned=stats["partitions"],
+                vectors_scanned=stats["vectors"],
+                comparisons=stats["comparisons"],
+                nprobe=nprobe, recall_estimate=r_est,
+                rounds=n_rounds, round_trace=trace)
 
 
 def get_executor(index: QuakeIndex,

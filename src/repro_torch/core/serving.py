@@ -1155,8 +1155,8 @@ class RoundScheduler:
             seq_pad, take_pad = seq_mat, take
         dev = self.ex.device
         with allow_sync("explicit upload of the round's queries and plan"):
-            q_dev = torch.as_tensor(q_pad, device=dev)
-            seq_dev = torch.as_tensor(seq_pad.astype(np.int32), device=dev)
+            q_dev = mq.to_device(q_pad, dev)
+            seq_dev = mq.to_device(seq_pad.astype(np.int32), dev)
         d, flat, st = self.ex.scan_probe_round(
             q_dev, seq_dev, take_pad, kept, self._k_keep, snap=self._snap,
             u_pow2=True, seq_host=seq_pad)
@@ -1165,8 +1165,8 @@ class RoundScheduler:
         # per round over the active rows
         with allow_sync("per-round fold: host top-k over a churning row set"):
             # quakecheck: allow-sync(per-round fold: host top-k over a churning row set)
-            d = d[:b].double().cpu().numpy()
-            flat = flat[:b].long().cpu().numpy()  # quakecheck: allow-sync(per-round fold)
+            d = mq.to_host(d[:b].double())
+            flat = mq.to_host(flat[:b].long())  # quakecheck: allow-sync(per-round fold)
         check_finite("the round scan's distances", d)
         return d, flat, st
 
@@ -2015,6 +2015,9 @@ class ServingRuntime:
                 self._drain_engine()
                 ver_before = self.index.version
                 ckpt = checkpoint_index(self.index)
+                # read only with metrics on: a metrics-off runtime reads
+                # its clock exactly as before
+                t0 = self._clock() if self.obs is not None else 0.0
                 try:
                     rep = self.maintenance.run_if_due(force=force)
                 except Exception as e:
@@ -2042,8 +2045,10 @@ class ServingRuntime:
                         reg.inc(f"maintenance.trigger.{reason}")
                         reg.inc("maintenance.splits", int(rep.splits))
                         reg.inc("maintenance.merges", int(rep.merges))
+                        t1 = self._clock()
+                        reg.observe("maintenance.seconds", t1 - t0)
                         self.obs.tracer.audit("maintenance", {
-                            "t": self._clock(), "reason": reason,
+                            "t": t1, "reason": reason,
                             "splits": int(rep.splits),
                             "merges": int(rep.merges),
                             "cost_before": float(rep.cost_before),

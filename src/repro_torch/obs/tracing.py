@@ -26,16 +26,34 @@ wall-clock dates (QK401, docs/static_analysis.md).
 ``QueryTracer._lock`` sits next-to-innermost in
 ``repro_torch.sanitize.LOCK_ORDER``: recording is legal under any runtime
 lock and acquires nothing else.
+
+Beside the per-query tracer sits the executor's span primitive:
+:func:`span` names a stretch of host work of the batched search path
+(``quake.<name>``), :func:`count` bumps an event counter, and
+:func:`program_totals` reads both back.  They are on only while
+``torch.profiler`` records: then a span enters a profiler record
+function (on the profiler's clock, nested under whatever is open) and
+adds its host time to a process-wide :class:`MetricsRegistry`, in one
+``update`` when the outermost span of the thread closes.  Off, a span
+is one flag read.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
+import threading
+import time
 from collections import deque
 from typing import Dict, List, Mapping
 
-from ..sanitize import TrackedLock, note_guarded
+import torch
+from torch.autograd import profiler as _profiler
 
-__all__ = ["DONE_FIELDS", "QueryTracer"]
+from ..sanitize import TrackedLock, note_guarded
+from .registry import MetricsRegistry
+
+__all__ = ["DONE_FIELDS", "QueryTracer", "count", "program_totals", "span"]
 
 # field order of a compact terminal record (a plain tuple: building a
 # dict per query on the serving hot path is measurable; building nine
@@ -166,3 +184,116 @@ class QueryTracer:
             for s in spans:
                 f.write(json.dumps(s, default=_json_default) + "\n")
         return len(spans)
+
+
+# ---------------------------------------------------------------------------
+# Executor spans: on only while torch's profiler records
+# ---------------------------------------------------------------------------
+
+PREFIX = "quake."
+WAIT = "wait"            # the span around a copy the host blocks on
+
+# what the spans and counters add up to, over every thread of the process
+_PROGRAM = MetricsRegistry()
+_seq = itertools.count(1)
+_tls = threading.local()
+_OFF = contextlib.nullcontext()      # the span while the profiler is off
+
+
+class _Thread:
+    """One thread's open spans (each frame a one-slot list of the ns its
+    ``quake.wait`` descendants took), the batch sequence number of the
+    outermost one, and the totals not yet in the registry."""
+
+    __slots__ = ("stack", "seq", "pending")
+
+    def __init__(self):
+        self.stack: List[list] = []
+        self.seq = 0
+        self.pending: Dict[str, int] = {}
+
+
+def _thread() -> _Thread:
+    st = getattr(_tls, "st", None)
+    if st is None:
+        st = _tls.st = _Thread()
+    return st
+
+
+def _flush(st: _Thread) -> None:
+    if st.pending:
+        pending, st.pending = st.pending, {}
+        _PROGRAM.update(counters=pending)
+
+
+class _Span:
+    __slots__ = ("name", "args", "handle", "frame", "t0", "st")
+
+    def __init__(self, name: str, args: tuple):
+        self.name = name
+        self.args = args
+
+    def __enter__(self):
+        st = self.st = _thread()
+        if not st.stack:
+            st.seq = next(_seq)
+        # the batch number (and the span's own args) are the record
+        # function's inputs: a trace taken with record_shapes shows them
+        self.handle = torch.autograd._record_function_with_args_enter(
+            PREFIX + self.name, st.seq, *self.args)
+        self.frame = [0]
+        st.stack.append(self.frame)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter_ns() - self.t0
+        torch.autograd._record_function_with_args_exit(self.handle)
+        st = self.st
+        stack = st.stack
+        stack.pop()
+        pend = st.pending
+        key = PREFIX + self.name
+        pend[key + ".count"] = pend.get(key + ".count", 0) + 1
+        pend[key + ".ns"] = pend.get(key + ".ns", 0) + dt
+        if self.name == WAIT:
+            for frame in stack:
+                frame[0] += dt
+        else:
+            pend[key + ".wait_ns"] = (pend.get(key + ".wait_ns", 0)
+                                      + self.frame[0])
+        if not stack:
+            _flush(st)
+        return False
+
+
+def span(name: str, **args):
+    """A context over host work named ``quake.<name>``.  While
+    ``torch.profiler`` records, it enters a profiler record function
+    whose inputs are the batch sequence number (shared by every span
+    under one outermost span) and ``args`` (ints), and adds
+    ``quake.<name>.count``, ``.ns`` (``time.perf_counter_ns``) and
+    ``.wait_ns`` (the part spent in ``quake.wait`` descendants) to the
+    program totals.  Otherwise it costs one flag read."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, tuple(args.values()))
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``quake.<name>`` while the profiler
+    records (with the open spans' totals, or at once outside any)."""
+    if not _profiler._is_profiler_enabled:
+        return
+    st = _thread()
+    key = PREFIX + name
+    st.pending[key] = st.pending.get(key, 0) + n
+    if not st.stack:
+        _flush(st)
+
+
+def program_totals() -> Dict[str, float]:
+    """The spans' and counters' totals over the process so far, a flat
+    dict under ``quake.`` names (empty until the profiler has recorded
+    one)."""
+    return _PROGRAM.snapshot()

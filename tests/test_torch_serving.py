@@ -132,6 +132,8 @@ def _assert_results_match(jres, pres):
                                    rtol=1e-4, equal_nan=True)
 
 
+MAINTENANCE_SECONDS = {f"maintenance.seconds.{s}" for s in (
+    "count", "sum", "min", "max", "mean", "p50", "p95", "p99")}
 STAT_KEYS = ("queries_submitted", "queries_completed", "cache_hits",
              "write_ops", "status_counts", "rounds_run",
              "admitted_batches", "partitions_streamed",
@@ -156,9 +158,11 @@ def test_serving_matches_reference(jbase, ds, backend, planner):
     for a, b in zip(jrt.scheduler.round_streams,
                     prt.scheduler.round_streams):
         assert np.array_equal(a, b)
-    # the unified exposition carries the same names
+    # the unified exposition carries the same names, and the port adds
+    # the seconds of each maintenance pass (a histogram)
     jm, pm = jrt.metrics_snapshot(), prt.metrics_snapshot()
-    assert set(pm) == set(jm)
+    assert set(pm) == set(jm) | MAINTENANCE_SECONDS
+    assert pm["maintenance.seconds.count"] == pm["maintenance.runs"]
     for key in ("serving.rounds_run", "scheduler.rounds",
                 "serving.cache_hits", "serving.flushes",
                 "maintenance.runs", "trace.completed"):
