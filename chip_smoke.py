@@ -13,9 +13,12 @@ the kernel checks and before path 3, paths 7-12 last, in that order):
    vectors of d=128 (L2; a mixture of 8192 Gaussian clusters with sizes
    proportional to i^-0.5, about eight clusters per partition),
    ``QuakeIndex.build`` with P = sqrt(n) = 1000 partitions,
-   ``search_batch`` of B=1024 queries at k=100 and recall target 0.9 (the
-   vectorized planner, the fused planner, ``nprobe=32, rounds=1`` and
-   bf16 storage), an insert burst of 10,000 vectors and 5,000 deletes,
+   B=1024 queries at k=100 and recall target 0.9 through an executor
+   that names the host (vectorized) planner and through ``search_batch``,
+   whose executor names none and so plans with the fused planner on the
+   card (gated: ``"fused"``, recall within DEFAULT_PLANNER_RECALL of the
+   host planner's), then ``search_batch`` at ``nprobe=32, rounds=1`` and
+   in bf16 storage, an insert burst of 10,000 vectors and 5,000 deletes,
    and a search again.
 2. int8 serving on the same index: APS rounds and ``nprobe=32,
    rounds=1`` through the int8 executor (IVF-residual codes, the q8 scan
@@ -241,6 +244,8 @@ OUT_DIR = ROOT / "chiprun_out" / "chip_smoke"
 TOL_REL, TOL_ABS = 1e-5, 1e-2
 BF16_RECALL = 0.8             # bf16 vs f32 id overlap (the JAX tests' bar)
 APS_RECALL_MIN = 0.85         # recall@100 of the APS path at target 0.9
+DEFAULT_PLANNER_RECALL = 0.005  # the default (fused) planner's recall@100
+                                # against the host planner's on the card
 INT8_OVERLAP = 0.85           # int8 vs f32 id overlap (the JAX tests' bar)
 # flash kernel vs its plain version, per entry: f32 within
 # FLASH_F32_TOL * |o| + FLASH_F32_TOL (tests/test_kernels.py's bound for
@@ -990,18 +995,34 @@ def main() -> int:
             fail(f"{name}: recall {rec:.4f} < {min_recall}")
         return r
 
+    # the host planner, named: an executor that names none plans on the
+    # card here
+    host = BatchedSearchExecutor(idx, planner="vectorized")
     search("search_vectorized",
-           lambda: idx.search_batch(q, args.k, recall_target=0.9),
+           lambda: host.search(q, args.k, recall_target=0.9),
            APS_RECALL_MIN)
     search("search_vectorized_warm",
+           lambda: host.search(q, args.k, recall_target=0.9),
+           APS_RECALL_MIN)
+    del host             # its snapshot copy is not needed again
+    torch.cuda.empty_cache()
+    # the default: search_batch's executor plans with the fused planner
+    search("search_default",
            lambda: idx.search_batch(q, args.k, recall_target=0.9),
            APS_RECALL_MIN)
-    fused = BatchedSearchExecutor(idx, planner="fused")
-    search("search_fused",
-           lambda: fused.search(q, args.k, recall_target=0.9),
+    search("search_default_warm",
+           lambda: idx.search_batch(q, args.k, recall_target=0.9),
            APS_RECALL_MIN)
-    del fused            # its snapshot copy is not needed again
-    torch.cuda.empty_cache()
+    planner = get_executor(idx).planner
+    gap = abs(runs["search_default_warm"]["recall@k"]
+              - runs["search_vectorized_warm"]["recall@k"])
+    print(f"  default planner {planner!r}: recall within {gap:.4f} of the "
+          f"host planner's")
+    if planner != "fused":
+        fail(f"the default planner on the card is {planner!r}, not 'fused'")
+    if gap > DEFAULT_PLANNER_RECALL:
+        fail(f"the default planner's recall is {gap:.4f} from the host "
+             f"planner's (> {DEFAULT_PLANNER_RECALL})")
     search("search_nprobe32",
            lambda: idx.search_batch(q, args.k, nprobe=32, rounds=1))
     search("search_bf16",
@@ -1345,8 +1366,9 @@ def main() -> int:
     # ---- path 6: the sharded engine over a one-rank NCCL mesh -----------
     # the executor's result the engine's search_batch is held against (its
     # launches are not the engine path's); a fresh executor, so that its
-    # planner calibrates the APS radius on these queries, as the engine's
-    ex_fresh = BatchedSearchExecutor(idx)
+    # planner calibrates the APS radius on these queries, as the engine's,
+    # on the engine's own (host) planner
+    ex_fresh = BatchedSearchExecutor(idx, planner="vectorized")
     r_ex = ex_fresh.search(q3, args.k, recall_target=0.9)
     del ex_fresh
     pg_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
@@ -1742,8 +1764,8 @@ def run_engine(args, idx, q, gt, r_ex, first_id, dev, counters):
 
     Gates: brute force recall@k >= BRUTE_RECALL_MIN against the exact
     ground truth; ``search_batch`` equal to the executor's on the same
-    index (``r_ex``: ids but at near-ties, rounds and partitions
-    scanned); in every storage, the indexed scans of the timed fixed,
+    index and planner (``r_ex``, the host planner: ids but at near-ties,
+    rounds and partitions scanned); in every storage, the indexed scans of the timed fixed,
     adaptive and batch calls held against their plain versions on their
     own operands (``hold_query_blocks``: the main path's tolerance, int8
     bit-equal); fixed and adaptive against the same engine at

@@ -75,7 +75,11 @@ def estimate_probs_np(d0_sq: float, di_sq: np.ndarray, cc_dist: np.ndarray,
 def _pairwise_sum(x: Tensor) -> Tensor:
     """Sum over the last axis in numpy's pairwise order (blocks of eight
     partial sums, halves above 128), so a row sums bit-equal to
-    ``np.sum`` of the same float64 row."""
+    ``np.sum`` of the same float64 row.  On the card, whose math already
+    rounds otherwise, one reduction (the pairwise order costs a launch
+    per block)."""
+    if x.is_cuda:
+        return x.sum(dim=-1)
     n = x.shape[-1]
     if n < 8:
         res = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)

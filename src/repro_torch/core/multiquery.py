@@ -8,7 +8,11 @@ read is shared by all queries that probe it:
      estimator on ``(B, n_consider)`` arrays, a radius calibrated from one
      batched sample search); the fused planner runs the centroid pass
      (the ``scan_topk`` kernel), the estimator and the probe selection on
-     the device.  The per-query loop planner is the parity oracle.
+     the device, and a fixed-``nprobe`` plan's probe sets go from the
+     centroid pass to the pack without leaving it.  An executor that
+     names no planner plans where the index lives (``default_planner``):
+     fused on the card, vectorized on the CPU.  The per-query loop
+     planner is the parity oracle.
   2. **Pack**: the probe sets become one frequency-ranked partition union
      plus a ``(B, U)`` mask, on the device (``ops.pack_round_masked``).
   3. **Scan**: ``ops.scan_selected_topk`` — the ``scan_topk_indexed``
@@ -68,6 +72,28 @@ def to_device(a, device) -> torch.Tensor:
     stream (a ``quake.wait`` span)."""
     with span(WAIT):
         return torch.as_tensor(a, device=device)
+
+
+def _pull_rows(ts) -> list:
+    """Device tensors with the same leading dimension as host f64 arrays
+    of their shapes, in one device->host copy (f64 holds the planner's
+    partition ids and counts exactly)."""
+    cols = [t.reshape(t.shape[0], -1).double() for t in ts]
+    flat = to_host(torch.cat(cols, dim=1))
+    out, c0 = [], 0
+    for t, c in zip(ts, cols):
+        c1 = c0 + c.shape[1]
+        out.append(np.ascontiguousarray(flat[:, c0:c1]).reshape(t.shape))
+        c0 = c1
+    return out
+
+
+def default_planner(device) -> str:
+    """The planner of an executor that names none: "fused" where the
+    index lives on the card, so the centroid pass is the ``scan_topk``
+    kernel and the plan stays on the device up to the pack; "vectorized"
+    elsewhere, where the host planner is the device path."""
+    return "fused" if torch.device(device).type == "cuda" else "vectorized"
 
 
 @dataclass
@@ -519,37 +545,43 @@ def _fused_plan_probes(q, cents, aug_extra, max_norm_sq: float,
         return seq, counts, r_est, geo_seq, cc_seq
 
 
+def _planner_cents(index: QuakeIndex, cache: Optional[PlannerCache]):
+    """The fused planner's device operands: the cache's, or fresh."""
+    return cache.device_arrays() if cache is not None \
+        else _planner_tensors(index)
+
+
 def _aps_probe_counts_fused(index: QuakeIndex, q: np.ndarray, k: int,
                             target: float,
                             kth_med: Optional[float] = None,
                             cache: Optional[PlannerCache] = None,
-                            full: bool = False):
+                            full: bool = False,
+                            q_dev: Optional[torch.Tensor] = None):
     """Host wrapper of the fused device planner: calibration and cache
     lookups on the host (the numpy planner's policy), then one
-    ``_fused_plan_probes`` call on the index's device.  Same return
+    ``_fused_plan_probes`` call on the index's device, on ``q_dev`` (the
+    queries already uploaded) or on an upload of ``q``.  Same return
     contracts as ``_aps_probe_counts_batched``."""
     m = _aps_candidate_budget(index)
     kth_med = _kth_for_plan(index, q, k, target, m, kth_med, cache)
-    if cache is not None:
-        cents_d, aug_d, table_d = cache.device_arrays()
-    else:
-        cents_d, aug_d, table_d = _planner_tensors(index)
-    seq_d, counts_d, r_d, geo_d, cc_d = _fused_plan_probes(
-        to_device(q, index.device), cents_d, aug_d,
-        float(index._max_norm_sq), float(kth_med), table_d, float(target),
-        m=m, metric=index.config.metric)
+    with span("plan.on_card"):
+        cents_d, aug_d, table_d = _planner_cents(index, cache)
+        if q_dev is None:
+            q_dev = to_device(q, index.device)
+        seq_d, counts_d, r_d, geo_d, cc_d = _fused_plan_probes(
+            q_dev, cents_d, aug_d, float(index._max_norm_sq),
+            float(kth_med), table_d, float(target), m=m,
+            metric=index.config.metric)
 
-    # the plan contract (round chunking, the host re-estimator) is
-    # host-side: one pull per plan at this boundary
-    # quakecheck: allow-sync(fused planner boundary: host plan contract)
-    counts = to_host(counts_d)
-    seq = to_host(seq_d)  # quakecheck: allow-sync(fused planner boundary)
-    r_est = to_host(r_d)  # quakecheck: allow-sync(fused planner boundary)
+        # the plan contract (round chunking, the host re-estimator) is
+        # host-side: one pull per plan at this boundary
+        parts = (seq_d, counts_d, r_d) + ((geo_d, cc_d) if full else ())
+        # quakecheck: allow-sync(fused planner boundary: host plan contract)
+        seq, counts, r_est, *geo_cc = _pull_rows(parts)
+    seq, counts = seq.astype(np.int64), counts.astype(np.int64)
     if full:
-        return RoundPlan(seq=seq, counts=counts,
-                         geo=to_host(geo_d),  # quakecheck: allow-sync(fused planner boundary)
-                         cc=to_host(cc_d),    # quakecheck: allow-sync(fused planner boundary)
-                         recall_est=r_est, seq_dev=seq_d)
+        return RoundPlan(seq=seq, counts=counts, geo=geo_cc[0],
+                         cc=geo_cc[1], recall_est=r_est, seq_dev=seq_d)
     n_max = int(counts.max())
     vmask = np.arange(n_max)[None, :] < counts[:, None]
     sel = np.where(vmask, seq[:, :n_max], 0).astype(np.int64)
@@ -574,6 +606,32 @@ def _pack_plan(sel_q: torch.Tensor, qvalid: torch.Tensor,
                                  p=p, u_pad=u_pad)
 
 
+def _union_width(sel_q, qvalid, nearest, *, p: int,
+                 union_cap: Optional[int], u_bucket: int):
+    """The packed union's width: the distinct partitions the probe sets
+    hit, with a union cap floored at the distinct-anchor count (so no
+    query loses its whole probe set to the cap), and that width padded to
+    a multiple of ``u_bucket``.  Counts where the probe sets are: a host
+    plan's arrays on the host, a device plan on its device, whose count
+    comes up with the anchors in one pull (the width is a shape).
+    Returns ``(n_real, u_pad, anchors)``, the anchors a host array."""
+    on_device = torch.is_tensor(sel_q)
+    sel_t, valid_t, near_t = (torch.as_tensor(a)
+                              for a in (sel_q, qvalid, nearest))
+    hit = torch.zeros(p, dtype=torch.bool, device=sel_t.device)
+    hit[sel_t[valid_t]] = True
+    n_real = hit.sum()
+    if union_cap:
+        anchored = torch.zeros_like(hit)
+        anchored[near_t] = True
+        n_real = torch.minimum(n_real, anchored.sum().clamp(min=union_cap))
+    head = torch.cat([n_real.reshape(1), near_t.long()])
+    # quakecheck: allow-sync(the union width is a shape: one pull)
+    head = to_host(head) if on_device else head.numpy()
+    n_real = max(int(head[0]), 1)
+    return n_real, max(-(-n_real // u_bucket) * u_bucket, 1), head[1:]
+
+
 def plan_batch(index: QuakeIndex, q: np.ndarray, k: int,
                nprobe: Optional[int] = None,
                recall_target: Optional[float] = None,
@@ -581,13 +639,17 @@ def plan_batch(index: QuakeIndex, q: np.ndarray, k: int,
                union_cap: Optional[int] = None,
                planner: str = "vectorized",
                cent_norms: Optional[np.ndarray] = None,
-               cache: Optional[PlannerCache] = None) -> BatchPlan:
+               cache: Optional[PlannerCache] = None,
+               q_dev: Optional[torch.Tensor] = None) -> BatchPlan:
     """Plan one batched scan: per-query probe sets -> partition union +
     per-query mask.  ``planner`` is "vectorized" (host), "fused"
     (device) or "loop" (the per-query baseline); ``union_cap`` bounds the
     distinct partitions scanned (frequency-ranked truncation).  The union
     width is rounded up to a multiple of ``u_bucket`` with inert slots,
-    as in the JAX package, so both give the same plan."""
+    as in the JAX package, so both give the same plan.  The fused planner
+    plans on ``q_dev``, the queries already on the index's device, when
+    given; a fused ``nprobe`` plan never leaves the device before the
+    pack."""
     b = q.shape[0]
     p = index.levels[0].num_partitions
     dev = index.device
@@ -601,15 +663,30 @@ def plan_batch(index: QuakeIndex, q: np.ndarray, k: int,
     with span("plan"):
         r_est = None
         if nprobe is not None:
+            n = int(max(1, min(nprobe, p)))
+            counts = np.full(b, n, dtype=np.int64)
+        if nprobe is not None and planner == "fused":
+            # each query's n nearest partitions from the centroid pass
+            # (the scan_topk kernel on the card), nearest first, go to the
+            # pack as they are
+            with span("plan.on_card"), span("plan.centroids"):
+                if q_dev is None:
+                    q_dev = to_device(q, dev)
+                _, sel_q = ops.scan_topk(
+                    q_dev, _planner_cents(index, cache)[0], n,
+                    metric=index.config.metric, impl="auto")
+                sel_q = sel_q.long()
+                qvalid = torch.ones((b, n), dtype=torch.bool,
+                                    device=sel_q.device)
+                nearest = sel_q[:, 0]
+        elif nprobe is not None:
             with span("plan.centroids"):
                 cd = _centroid_dists(index, q, cent_norms)
-                n = int(max(1, min(nprobe, p)))
                 if n < p:
                     sel_q = np.argpartition(cd, n - 1, axis=1)[:, :n]
                 else:
                     sel_q = np.broadcast_to(np.arange(p), (b, p)).copy()
                 qvalid = np.ones((b, n), dtype=bool)
-                counts = np.full(b, n, dtype=np.int64)
                 nearest = np.argmin(cd, axis=1)
         else:
             target = recall_target if recall_target is not None \
@@ -619,28 +696,21 @@ def plan_batch(index: QuakeIndex, q: np.ndarray, k: int,
                     index, q, k, target)
             elif planner == "fused":
                 sel_q, qvalid, counts, r_est = _aps_probe_counts_fused(
-                    index, q, k, target, cache=cache)
+                    index, q, k, target, cache=cache, q_dev=q_dev)
             else:
                 sel_q, qvalid, counts, r_est = _aps_probe_counts_batched(
                     index, q, k, target, cent_norms=cent_norms, cache=cache)
             nearest = sel_q[:, 0]
 
         with span("plan.pack"):
-            hit = np.zeros(p, dtype=bool)
-            hit[sel_q[qvalid]] = True
-            n_hits = int(hit.sum())
-            if union_cap:
-                # floor the cap at the distinct-anchor count, so no query
-                # loses its whole probe set to the cap
-                n_anchor = int(len(np.unique(nearest)))
-                n_real = min(n_hits, max(union_cap, n_anchor))
-            else:
-                n_real = n_hits
-            n_real = max(n_real, 1)
-            u_pad = max(-(-n_real // u_bucket) * u_bucket, 1)
+            n_real, u_pad, anchor = _union_width(
+                sel_q, qvalid, nearest, p=p, union_cap=union_cap,
+                u_bucket=u_bucket)
+            # a host plan goes up here; a device plan is there already
             sel_d, qmask_d = _pack_plan(
-                to_device(sel_q, dev), to_device(qvalid, dev),
-                to_device(nearest, dev), n_real, p=p, u_pad=u_pad)
+                *(a if torch.is_tensor(a) else to_device(a, dev)
+                  for a in (sel_q, qvalid, nearest)),
+                n_real, p=p, u_pad=u_pad)
             # introspection reads the plan on the host: one pull at the
             # boundary
             # quakecheck: allow-sync(host plan mirror for introspection)
@@ -652,8 +722,7 @@ def plan_batch(index: QuakeIndex, q: np.ndarray, k: int,
                 # estimate
                 r_est = np.where(eff < counts, np.nan, r_est)
     return BatchPlan(sel=sel, qmask=qmask, nprobe=eff, n_real=n_real,
-                     planned=counts,
-                     anchor=np.asarray(nearest, dtype=np.int64),
+                     planned=counts, anchor=anchor.astype(np.int64),
                      recall_est=r_est, sel_dev=sel_d, qmask_dev=qmask_d)
 
 
@@ -664,14 +733,15 @@ def plan_batch(index: QuakeIndex, q: np.ndarray, k: int,
 def plan_rounds(index: QuakeIndex, q: np.ndarray, k: int, target: float,
                 planner: str = "vectorized",
                 cache: Optional[PlannerCache] = None,
-                cent_norms: Optional[np.ndarray] = None) -> RoundPlan:
+                cent_norms: Optional[np.ndarray] = None,
+                q_dev: Optional[torch.Tensor] = None) -> RoundPlan:
     """APS probe planning for the round executor: scan-ordered candidate
     sequences plus seq-aligned estimator inputs.  ``planner`` is
-    "vectorized" (host) or "fused" (device)."""
+    "vectorized" (host) or "fused" (device, on ``q_dev`` when given)."""
     with span("plan"):
         if planner == "fused":
             return _aps_probe_counts_fused(index, q, k, target, cache=cache,
-                                           full=True)
+                                           full=True, q_dev=q_dev)
         return _aps_probe_counts_batched(index, q, k, target,
                                          cent_norms=cent_norms, cache=cache,
                                          full=True)
@@ -828,9 +898,13 @@ class BatchedSearchExecutor:
     re-ranks them exactly from a compact host f32 mirror of the level-0
     rows.
 
-    ``impl`` is the scan implementation every search uses unless it names
-    its own, ``u_bucket`` the union-width padding step, ``rounds`` the
-    default round budget of APS searches (1 = one fixed-plan scan),
+    ``planner`` is "vectorized" (host numpy), "fused" (the centroid pass,
+    estimator and probe choice on the index's device) or "loop" (the
+    per-query oracle); unnamed, it follows the index's device
+    (``default_planner``).  ``impl`` is the scan implementation every
+    search uses unless it names its own, ``u_bucket`` the union-width
+    padding step, ``rounds`` the default round budget of APS searches
+    (1 = one fixed-plan scan),
     ``union_cap`` the default union cap, ``headroom`` overrides the
     config's slot slack, and
     ``part_bucket`` pads the snapshot's partition count (sticky, with 25%
@@ -842,11 +916,13 @@ class BatchedSearchExecutor:
                  u_bucket: int = U_BUCKET, headroom: Optional[float] = None,
                  storage_dtype: str = "f32",
                  union_cap: Optional[int] = None,
-                 planner: str = "vectorized", int8_rerank: bool = True,
+                 planner: Optional[str] = None, int8_rerank: bool = True,
                  rounds: Optional[int] = None, part_bucket: int = 1):
         if storage_dtype not in STORAGE_DTYPES:
             raise ValueError(f"storage_dtype must be one of "
                              f"{STORAGE_DTYPES}, got {storage_dtype!r}")
+        if planner is None:
+            planner = default_planner(index.device)
         if planner not in ("vectorized", "fused", "loop"):
             raise ValueError(f"unknown planner {planner!r}")
         self.index = index
@@ -1049,13 +1125,15 @@ class BatchedSearchExecutor:
                     else self.index.config.recall_target
                 return self._search_rounds(q, k, target, rounds, impl=impl,
                                            snap=snap)
+            dev = self.device
+            # the fused planner plans on the queries the scan reads
+            q_dev = to_device(q, dev) if self.planner == "fused" else None
             plan = plan_batch(self.index, q, k, nprobe=nprobe,
                               recall_target=recall_target,
                               u_bucket=self.u_bucket, union_cap=cap,
                               planner=self.planner,
                               cent_norms=self._cent_norms,
-                              cache=self.planner_cache)
-            dev = self.device
+                              cache=self.planner_cache, q_dev=q_dev)
             metric = self.index.config.metric
             rerank = snap.scales is not None and self._mirror is not None
             with span("scan"):
@@ -1063,7 +1141,8 @@ class BatchedSearchExecutor:
                     else to_device(plan.sel, dev)
                 qmask_dev = plan.qmask_dev if plan.qmask_dev is not None \
                     else to_device(plan.qmask, dev)
-                q_dev = to_device(q, dev)
+                if q_dev is None:
+                    q_dev = to_device(q, dev)
                 if snap.scales is not None:          # int8 residual codes
                     dd, flat = ops.scan_selected_topk_q8(
                         q_dev, snap.data, snap.scales, self._valid, sel_dev,
@@ -1157,10 +1236,12 @@ class BatchedSearchExecutor:
         """Multi-round early-exit search (Algorithm 2 semantics)."""
         idx = self.index
         snap = self.snapshot() if snap is None else snap
+        # one upload: the fused planner plans on the queries the rounds
+        # scan
+        q_dev = to_device(q, self.device)
         rplan = plan_rounds(idx, q, k, target, planner=self.planner,
                             cache=self.planner_cache,
-                            cent_norms=self._cent_norms)
-        q_dev = to_device(q, self.device)
+                            cent_norms=self._cent_norms, q_dev=q_dev)
         seq_dev = rplan.seq_dev if rplan.seq_dev is not None \
             else to_device(rplan.seq, self.device)
         rerank = snap.scales is not None and self._mirror is not None

@@ -353,14 +353,30 @@ def test_main_path_on_the_card_matches_cpu(dev):
                            device="cpu")
     state = index_to_arrays(cpu)
     gpu = index_from_arrays(state, device=dev)
+    host_planned = {}
+
+    def on_host_planner(kw):
+        """The card's search on the CPU's planner, the host one."""
+        kw = dict(kw)
+        dtype = kw.pop("storage_dtype", "f32")
+        if dtype not in host_planned:
+            host_planned[dtype] = mq.BatchedSearchExecutor(
+                gpu, storage_dtype=dtype, planner="vectorized")
+        return host_planned[dtype].search(q, 10, **kw)
+
     for kw in (dict(nprobe=6), dict(), dict(rounds=1),
                dict(storage_dtype="bf16")):
         # the CPU kernel path (plain versions) computes what the kernels
         # do; bf16 queries ride in bf16 there, not in the torch oracle
         rc = cpu.search_batch(q, 10, impl="cuda", **kw)
-        rg = gpu.search_batch(q, 10, **kw)
+        rg = on_host_planner(kw)
         assert np.mean(rc.ids == rg.ids) >= 0.99
         np.testing.assert_array_equal(rc.nprobe, rg.nprobe)
+        # the card's default planner, the fused one: its centroid pass
+        # is the kernel, so it matches up to matmul rounding
+        rd = gpu.search_batch(q, 10, **kw)
+        assert np.mean(rd.nprobe == rc.nprobe) >= 0.95
+        assert np.mean(rd.ids == rc.ids) >= 0.95
     before = st.LAUNCHES.count
     rf = mq.BatchedSearchExecutor(gpu, planner="fused").search(q, 10)
     assert st.LAUNCHES.count > before
@@ -374,12 +390,76 @@ def test_main_path_on_the_card_matches_cpu(dev):
     gpu.check_invariants()
     assert gpu.id_map == cpu.id_map
     ex = mq.get_executor(gpu)
-    rg = gpu.search_batch(q, 10)
+    assert ex.planner == "fused"
+    rc = cpu.search_batch(q, 10)
+    rg = on_host_planner({})
+    assert host_planned["f32"].delta_refreshes == 1
+    assert np.mean(rg.ids == rc.ids) >= 0.99
+    rd = gpu.search_batch(q, 10)
     assert ex.delta_refreshes == 1
-    assert np.mean(rg.ids == cpu.search_batch(q, 10).ids) >= 0.99
+    assert np.mean(rd.ids == rc.ids) >= 0.95
     built = QuakeIndex.build(ds.vectors, num_partitions=32, kmeans_iters=4,
                              device=dev)
     built.check_invariants()
+
+
+def _exact_recall(ids, want) -> float:
+    return float(np.mean([len(set(a[a >= 0].tolist()) & set(b.tolist()))
+                          / want.shape[1] for a, b in zip(ids, want)]))
+
+
+def test_default_executor_on_the_card_plans_there(dev):
+    """A card index's executors plan on the card when no planner is
+    named: the centroid pass is the ``scan_topk`` kernel, once a batch,
+    and recall against exact k-NN is the host planner's within 0.005."""
+    ds = datasets.clustered(20000, 32, n_clusters=64, seed=4)
+    q = datasets.queries_near(ds, 512, seed=5)
+    gpu = QuakeIndex.build(ds.vectors, num_partitions=64, kmeans_iters=4,
+                           device=dev)
+    assert mq.get_executor(gpu).planner == "fused"
+    assert mq.get_executor(gpu, "bf16").planner == "fused"
+    host = mq.BatchedSearchExecutor(gpu, planner="vectorized")
+    want = ds.ground_truth(q, 10)              # ids are the row numbers
+    for kw in (dict(), dict(nprobe=8, rounds=1)):
+        gpu.search_batch(q, 10, **kw)           # snapshot, radius, operands
+        before = st.LAUNCHES.count
+        rd = gpu.search_batch(q, 10, **kw)
+        assert st.LAUNCHES.count - before == 1
+        before = st.LAUNCHES.count
+        rv = host.search(q, 10, **kw)
+        assert st.LAUNCHES.count == before
+        rec_d = _exact_recall(rd.ids, want)
+        rec_v = _exact_recall(rv.ids, want)
+        assert abs(rec_d - rec_v) <= 0.005, (kw, rec_d, rec_v)
+        assert rec_v >= 0.5
+
+
+@pytest.mark.parametrize("planner", ["fused", "vectorized"])
+def test_host_waits_on_the_card_follow_the_copy_sites(dev, planner):
+    """The copies the host blocks on, as the CPU tests count them: APS
+    2 x rounds + 4 on either planner; a pinned ``nprobe`` 6 on the fused
+    planner (the queries once, the union width with the anchors, the two
+    mirror pulls, two result pulls) and 8 on the host one."""
+    from repro_torch.obs import tracing
+    ds = datasets.clustered(8000, 16, n_clusters=32, seed=6)
+    q = datasets.queries_near(ds, 64, seed=7)
+    gpu = QuakeIndex.build(ds.vectors, num_partitions=40, kmeans_iters=4,
+                           device=dev)
+    ex = mq.BatchedSearchExecutor(gpu, planner=planner)
+    for kw, want in ((dict(), None),
+                     (dict(nprobe=6, rounds=1),
+                      6 if planner == "fused" else 8)):
+        ex.search(q, 10, **kw)
+        before = tracing.program_totals()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            r = ex.search(q, 10, **kw)
+        after = tracing.program_totals()
+        waits = after["quake.wait.count"] - before.get("quake.wait.count", 0)
+        on_card = after.get("quake.plan.on_card.count", 0) \
+            - before.get("quake.plan.on_card.count", 0)
+        assert waits == (2 * r.rounds + 4 if want is None else want)
+        assert on_card == (planner == "fused")
 
 
 # ---------------------------------------------------------------------------

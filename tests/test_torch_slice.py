@@ -163,6 +163,57 @@ def test_fused_planner_matches_up_to_matmul_rounding(built):
     assert np.mean(rf.ids == rv.ids) >= 0.95
 
 
+def test_default_planner_follows_the_index_device(built, monkeypatch):
+    """An executor that names no planner plans where the index lives: the
+    host planner on a CPU index, the fused one on a card index (here an
+    index whose ``device`` reports the card; nothing runs).  A named
+    planner is kept either way."""
+    metric, j, q, state = built
+    p = _port(state)
+    assert mq.BatchedSearchExecutor(p).planner == "vectorized"
+    assert mq.get_executor(p).planner == "vectorized"
+    assert mq.get_executor(p, "int8").planner == "vectorized"
+    monkeypatch.setattr(p, "device", torch.device("cuda"))
+    assert mq.BatchedSearchExecutor(p).planner == "fused"
+    assert mq.BatchedSearchExecutor(p, storage_dtype="bf16").planner \
+        == "fused"
+    for named in ("vectorized", "fused", "loop"):
+        assert mq.BatchedSearchExecutor(p, planner=named).planner == named
+    assert (mq.default_planner("cuda"), mq.default_planner("cuda:1"),
+            mq.default_planner("cpu")) == ("fused", "fused", "vectorized")
+
+
+@pytest.mark.parametrize("cap", [None, 9])
+@pytest.mark.parametrize("nprobe", [6, 40], ids=["n<P", "n>=P"])
+def test_fused_nprobe_plan_matches_host(built, nprobe, cap, monkeypatch):
+    """A fixed-``nprobe`` plan on the device (the ``scan_topk`` centroid
+    pass, its torch twin here, fed to the pack as it is) picks row by row
+    the host branch's probe set and nearest partition, so the packed
+    union and mask are the same."""
+    metric, j, q, state = built
+    p = _port(state)
+    calls = []
+    real = mq.ops.scan_topk
+
+    def counted(*a, **kw):
+        calls.append(a[2])
+        return real(*a, **kw)
+    monkeypatch.setattr(mq.ops, "scan_topk", counted)
+    host = mq.plan_batch(p, q, 10, nprobe=nprobe, union_cap=cap)
+    assert calls == []
+    card = mq.plan_batch(p, q, 10, nprobe=nprobe, union_cap=cap,
+                         planner="fused", cache=mq.PlannerCache(p))
+    assert calls == [min(nprobe, 32)]        # one centroid pass, P = 32
+    for i in range(q.shape[0]):
+        assert set(card.sel[card.qmask[i]]) == set(host.sel[host.qmask[i]])
+    np.testing.assert_array_equal(card.anchor, host.anchor)
+    assert card.n_real == host.n_real
+    for f in ("sel", "qmask", "nprobe", "planned"):
+        np.testing.assert_array_equal(getattr(card, f), getattr(host, f))
+    assert card.recall_est is None and host.recall_est is None
+    np.testing.assert_array_equal(card.sel_dev.long().numpy(), card.sel)
+
+
 def test_round_trace_has_the_pinned_keys(built):
     metric, j, q, state = built
     r = _port(state).search_batch(q, 10)

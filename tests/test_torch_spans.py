@@ -162,6 +162,49 @@ def test_wait_count_is_the_copy_sites(index):
     assert added["quake.wait.count"] == 8
 
 
+@pytest.mark.parametrize("planner,on_card", [("fused", 1),
+                                             ("vectorized", 0)])
+@pytest.mark.parametrize("mode", [{}, {"nprobe": 6, "rounds": 1}],
+                         ids=["aps", "nprobe"])
+def test_plans_on_the_card_are_counted(index, planner, on_card, mode):
+    """``quake.plan.on_card`` counts once a batch whose plan ran on the
+    index's device (the fused planner), and never for the host planner."""
+    ex = mq.BatchedSearchExecutor(index, planner=planner)
+    ex.search(QUERIES, K, **mode)             # the snapshot, the radius
+    _, added, _ = _profiled(lambda: [ex.search(QUERIES, K, **mode)
+                                     for _ in range(3)])
+    assert added["quake.search_batch.count"] == 3
+    assert added.get("quake.plan.on_card.count", 0) == 3 * on_card
+    assert added["quake.plan.count"] == 3
+
+
+def test_fused_plans_upload_the_queries_once(index, monkeypatch):
+    """The fused planner plans on the queries the scan reads: one upload
+    of the batch.  APS: that upload, one pull of the plan's five arrays,
+    a take-mask upload and a k-th pull a round, two result pulls.
+    ``nprobe``: that upload, one pull of the union width and the anchors,
+    the two mirror pulls, two result pulls."""
+    ex = mq.BatchedSearchExecutor(index, planner="fused")
+    for mode in ({}, {"nprobe": 6, "rounds": 1}):
+        ex.search(QUERIES, K, **mode)
+    uploads = []
+    real = mq.to_device
+
+    def recorded(a, device):
+        uploads.append(np.shape(a))
+        return real(a, device)
+    monkeypatch.setattr(mq, "to_device", recorded)
+    r, added, _ = _profiled(lambda: ex.search(QUERIES, K))
+    assert r.rounds >= 2
+    assert uploads.count(QUERIES.shape) == 1
+    assert added["quake.wait.count"] == 2 * r.rounds + 4
+    uploads.clear()
+    _, added, _ = _profiled(lambda: ex.search(QUERIES, K, nprobe=6,
+                                              rounds=1))
+    assert uploads == [QUERIES.shape]
+    assert added["quake.wait.count"] == 6
+
+
 def test_profiler_off_records_nothing_and_answers_agree(index,
                                                         monkeypatch):
     _aps(index)
