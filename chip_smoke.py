@@ -1109,7 +1109,9 @@ def main() -> int:
     kernels = []
     snap = ex.snapshot()
     valid = ex._valid
-    plan = plan_batch(idx, q, args.k, recall_target=0.9)
+    # the scan's operands: the plan's union as the snapshot's pages (the
+    # f32, bf16 and int8 snapshots of one index share their page layout)
+    plan = plan_batch(idx, q, args.k, recall_target=0.9, pages=ex.pages)
     sel = plan.sel_dev.to(torch.int32).contiguous()
     sel_l = sel.long()
     qmask = plan.qmask_dev.contiguous()
@@ -1125,7 +1127,7 @@ def main() -> int:
     b, d = q.shape
     u = int(sel.shape[0])
     # the second timed plan: nprobe=32, rounds=1 (many queries a slot)
-    plan32 = plan_batch(idx, q, args.k, nprobe=32)
+    plan32 = plan_batch(idx, q, args.k, nprobe=32, pages=ex.pages)
     sel32 = plan32.sel_dev.to(torch.int32).contiguous()
     qmask32 = plan32.qmask_dev.contiguous()
     work = {"aps": worklist(sti, qmask, sel_l, nrows),
@@ -1222,14 +1224,14 @@ def main() -> int:
     rows8 = int(nrows8[uniq].sum())
 
     def dequantized():
-        return (snap8.centroids.index_select(0, sel_l)[:, None, :]
+        return (ex8._page_cents.index_select(0, sel_l)[:, None, :]
                 + snap8.data.index_select(0, sel_l).float()
                 * snap8.scales.index_select(0, sel_l)[..., None])
 
     for metric in ("l2", "ip"):
         operands = ref.q8_scan_operands(q_dev, snap8.data, snap8.scales,
                                         ex8._valid, sel, metric,
-                                        snap8.centroids)
+                                        ex8._page_cents)
         args8 = (*operands[:2], snap8.data, snap8.scales, *operands[2:],
                  ex8._valid, sel, qmask)
 
@@ -1251,7 +1253,7 @@ def main() -> int:
                 kern, "scan_topk_indexed_q8")
         ops32 = ref.q8_scan_operands(q_dev, snap8.data, snap8.scales,
                                      ex8._valid, sel32, metric,
-                                     snap8.centroids)
+                                     ex8._page_cents)
         args32 = (*ops32[:2], snap8.data, snap8.scales, *ops32[2:],
                   ex8._valid, sel32, qmask32)
 
@@ -5225,9 +5227,6 @@ def run_wide(args, dev) -> dict:
     print(f"wide: {WIDE_N} x {WIDE_D} rows built into {len(sizes)} "
           f"partitions (largest {int(sizes.max())}) in "
           f"{out['build_s']:.1f} s (data {out['data_s']:.1f} s)")
-    plan = plan_batch(idx, q, WIDE_K, recall_target=0.9)
-    sel = plan.sel_dev.to(torch.int32).contiguous()
-    qmask = plan.qmask_dev.contiguous()
     kp = ops._next_pow2(WIDE_K)
     runs = {}
     for storage in ("f32", "bf16", "int8"):
@@ -5252,10 +5251,13 @@ def run_wide(args, dev) -> dict:
         # the kernel on the path's own operands: the batch's APS plan
         ex = get_executor(idx, storage)
         snap = ex.snapshot()
+        plan = plan_batch(idx, q, WIDE_K, recall_target=0.9, pages=ex.pages)
+        sel = plan.sel_dev.to(torch.int32).contiguous()
+        qmask = plan.qmask_dev.contiguous()
         if storage == "int8":
             out["q8"] = hold_wide_q8(
                 f"scan_topk_indexed_q8 d={WIDE_D}", sti, q_t, snap.data,
-                snap.scales, snap.centroids, ex._valid, sel, qmask,
+                snap.scales, ex._page_cents, ex._valid, sel, qmask,
                 ops._next_pow2(2 * WIDE_K))
         else:
             out[storage] = hold_wide_f32(

@@ -180,6 +180,9 @@ class ShardedQuakeEngine:
         """This rank's block of a whole snapshot on the mesh's device, in
         the configured storage.  A snapshot already in int8 passes through
         only to an int8 engine."""
+        if not snap.dense:
+            raise ValueError("the engine scans a page a partition: give it "
+                             "a dense snapshot (no page_size)")
         lo, hi = self._block(snap.num_partitions)
         dev = self.device
         cents = snap.centroids[lo:hi].to(dev)
@@ -232,6 +235,7 @@ class ShardedQuakeEngine:
                         pass
                     else:
                         patch.rows = patch.rows - lo
+                        patch.pages = patch.pages - lo
                         # the engine owns its block: patch it in place
                         self._snap = self._snap.apply_delta(patch,
                                                             donate=True)

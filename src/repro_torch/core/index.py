@@ -32,6 +32,8 @@ from .cost_model import PartitionStats
 from .device import resolve_device
 from .journal import MutationJournal
 
+_NORM_ROWS = 1 << 16    # rows a block of the build's max-norm pass
+
 __all__ = ["QuakeConfig", "QuakeIndex", "Level", "SearchResult",
            "resolve_device"]
 
@@ -160,8 +162,10 @@ class QuakeIndex:
         if level_sizes is None:
             p0 = num_partitions or max(1, int(round(math.sqrt(n))))
             level_sizes = (p0,)
-        idx._max_norm_sq = max(float(np.max(np.sum(
-            x.astype(np.float64) ** 2, axis=1), initial=0.0)), 1e-12)
+        # in row blocks: an f64 copy of wide rows would double the host's
+        idx._max_norm_sq = max(max((float(np.max(np.sum(
+            x[i:i + _NORM_ROWS].astype(np.float64) ** 2, axis=1)))
+            for i in range(0, n, _NORM_ROWS)), default=0.0), 1e-12)
 
         p0 = min(level_sizes[0], n)
         cents, assign = kmeans.kmeans(x, p0, iters=kmeans_iters,

@@ -14,9 +14,11 @@ read is shared by all queries that probe it:
      fused on the card, vectorized on the CPU.  The per-query loop
      planner is the parity oracle.
   2. **Pack**: the probe sets become one frequency-ranked partition union
-     plus a ``(B, U)`` mask, on the device (``ops.pack_round_masked``).
+     plus a ``(B, U)`` mask, on the device (``ops.pack_round_masked``),
+     and each union partition becomes the snapshot pages its rows fill,
+     its mask column repeated for each (``expand_pages``).
   3. **Scan**: ``ops.scan_selected_topk`` — the ``scan_topk_indexed``
-     kernel reads each selected partition once per tile of queries; for
+     kernel reads each selected page once per tile of queries; for
      int8 storage ``ops.scan_selected_topk_q8`` (the
      ``scan_topk_indexed_q8`` kernel) scans IVF-residual codes for the
      top-2k, re-ranked exactly from a host f32 mirror.
@@ -27,15 +29,18 @@ read is shared by all queries that probe it:
      top-k (``ops.topk_merge``), re-estimates recall from the running k-th
      distance and retires queries that cleared the target.
 
-The executor serves a cached ``IndexSnapshot`` kept coherent through the
-index's mutation journal: dirty-partition deltas patch only the touched
-rows; structural changes or capacity overflow rebuild it.  Storage is
+The executor serves a cached ``IndexSnapshot`` in pages of
+``SNAPSHOT_PAGE`` slots, kept coherent through the index's
+mutation journal: dirty-partition deltas patch only the touched
+partitions' pages; structural changes or a partition that outgrows its
+pages rebuild it.  Storage is
 f32, bf16 or int8; an int8 snapshot is requantized by a full rebuild on
 every journal delta.
 
 While ``torch.profiler`` records, each stage is a ``quake.*`` span
-(``obs.tracing.span``: ``search_batch`` > ``snapshot``, ``plan``,
-``rounds`` > ``round`` > ``scan``/``merge``, ``result``) and every copy
+(``obs.tracing.span``: ``search_batch`` > ``snapshot``, ``plan``
+(> ``plan.pack`` > ``plan.pages``), ``rounds`` > ``round`` >
+``scan``/``merge``, ``result``) and every copy
 the host blocks on (``to_host``, ``to_device``) a ``quake.wait`` span;
 docs/observability.md has the tree.
 """
@@ -55,10 +60,11 @@ from ..kernels.ref import MASK_DIST
 from ..obs.tracing import WAIT, count, span
 from . import aps as aps_mod
 from .index import QuakeIndex
-from .snapshot import STORAGE, IndexSnapshot
+from .snapshot import STORAGE, IndexSnapshot, used_pages
 
 STORAGE_DTYPES = tuple(STORAGE)
 U_BUCKET = 8        # union widths round up to a multiple of this
+SNAPSHOT_PAGE = 1024  # slots in a page of the executor's snapshot
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
@@ -125,8 +131,10 @@ class BatchPlan:
     planned: Optional[np.ndarray] = None  # (B,) pre-cap planned counts
     anchor: Optional[np.ndarray] = None   # (B,) each query's nearest
     recall_est: Optional[np.ndarray] = None  # (B,) planner estimate
-    sel_dev: Optional[torch.Tensor] = None   # device residents of sel and
-    qmask_dev: Optional[torch.Tensor] = None  # qmask (what the scan reads)
+    sel_dev: Optional[torch.Tensor] = None   # what the scan reads, on the
+    qmask_dev: Optional[torch.Tensor] = None  # device: sel and qmask, or
+                                             # with a page directory the
+                                             # union's pages and their mask
 
 
 @dataclass
@@ -632,6 +640,53 @@ def _union_width(sel_q, qvalid, nearest, *, p: int,
     return n_real, max(-(-n_real // u_bucket) * u_bucket, 1), head[1:]
 
 
+@dataclass
+class PageDirectory:
+    """Where a paged snapshot's partitions lie, for the pack: partition
+    j's rows fill pages ``[start[j], start[j] + used[j])``; its pages past
+    those, up to ``start[j + 1]``, are its slack and are never scanned."""
+    start: torch.Tensor      # (P + 1,) int64, on the snapshot's device
+    used: torch.Tensor       # (P,) int64, on the snapshot's device
+    used_host: np.ndarray    # (P,) int64
+
+    @staticmethod
+    def of(snap: IndexSnapshot, sizes_host: np.ndarray) -> "PageDirectory":
+        return PageDirectory(start=snap.page_start,
+                             used=used_pages(snap.sizes, snap.capacity),
+                             used_host=used_pages(sizes_host, snap.capacity))
+
+
+def expand_pages(sel: torch.Tensor, qmask: torch.Tensor, kept: np.ndarray,
+                 pages: PageDirectory, u_bucket: int, u_pow2: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed partition union as the scan's operand: each live union
+    slot (the first ``len(kept)`` of ``sel``, whose partitions the host
+    holds as ``kept``, in any order) becomes the pages its rows fill, in
+    order, each with the slot's column of ``qmask``; an inert tail (the
+    first page again, all-False) pads the width to a multiple of
+    ``u_bucket``, or with ``u_pow2`` to the ladder ``u_bucket * 2^i``.
+    The host knows the width from ``kept``, so nothing waits on the
+    device.  Returns (pages (U_pages,) int32, mask (B, U_pages))."""
+    with span("plan.pages"):
+        n_real = len(kept)
+        n_pages = int(pages.used_host[np.asarray(kept, dtype=np.int64)]
+                      .sum())
+        steps = -(-n_pages // u_bucket)
+        u_pad = u_bucket * (ops._next_pow2(steps) if u_pow2 else steps)
+        dev = sel.device
+        live = sel[:n_real].long()
+        cnt = pages.used[live]
+        col = torch.repeat_interleave(torch.arange(n_real, device=dev), cnt,
+                                      output_size=n_pages)
+        first = torch.cumsum(cnt, 0) - cnt
+        page = (pages.start[live][col] - first[col]
+                + torch.arange(n_pages, device=dev))
+        count("plan.union_pages", n_pages)
+        return ops._inert_tail(page.to(torch.int32),
+                               qmask.index_select(1, col), n_pages,
+                               max(u_pad, 1))
+
+
 def plan_batch(index: QuakeIndex, q: np.ndarray, k: int,
                nprobe: Optional[int] = None,
                recall_target: Optional[float] = None,
@@ -640,9 +695,13 @@ def plan_batch(index: QuakeIndex, q: np.ndarray, k: int,
                planner: str = "vectorized",
                cent_norms: Optional[np.ndarray] = None,
                cache: Optional[PlannerCache] = None,
-               q_dev: Optional[torch.Tensor] = None) -> BatchPlan:
+               q_dev: Optional[torch.Tensor] = None,
+               pages: Optional[PageDirectory] = None) -> BatchPlan:
     """Plan one batched scan: per-query probe sets -> partition union +
-    per-query mask.  ``planner`` is "vectorized" (host), "fused"
+    per-query mask.  With ``pages``, a paged snapshot's directory, the
+    device operands (``sel_dev``, ``qmask_dev``) are the union's pages and
+    their mask (``expand_pages``); ``sel`` and ``qmask`` stay the
+    partition union.  ``planner`` is "vectorized" (host), "fused"
     (device) or "loop" (the per-query baseline); ``union_cap`` bounds the
     distinct partitions scanned (frequency-ranked truncation).  The union
     width is rounded up to a multiple of ``u_bucket`` with inert slots,
@@ -716,6 +775,9 @@ def plan_batch(index: QuakeIndex, q: np.ndarray, k: int,
             # quakecheck: allow-sync(host plan mirror for introspection)
             sel = to_host(sel_d.long())
             qmask = to_host(qmask_d)  # quakecheck: allow-sync(plan mirror)
+            if pages is not None:
+                sel_d, qmask_d = expand_pages(sel_d, qmask_d, sel[:n_real],
+                                              pages, u_bucket)
             eff = qmask[:, :n_real].sum(axis=1).astype(np.int64)
             if r_est is not None:
                 # a cap that truncated a query's probes invalidates its
@@ -884,12 +946,13 @@ def _batch_rho_fn(index: QuakeIndex, q: np.ndarray):
 class BatchedSearchExecutor:
     """Executes planned batches against a snapshot on the index's device.
 
-    The snapshot is cached and kept coherent with the dynamic index
-    through its mutation journal: content changes confined to known
-    partitions patch only those rows (``IndexSnapshot.apply_delta`` in
-    place); structural changes, capacity overflow, or more than
-    ``config.snapshot_max_dirty_frac * P`` dirty partitions rebuild it
-    with ``config.snapshot_headroom`` slack capacity.
+    The snapshot is cached in pages of ``page_size`` slots, each
+    partition with ``config.snapshot_headroom - 1`` times its rows of
+    slack pages, and kept coherent with the dynamic index through its mutation journal:
+    content changes confined to known partitions patch only their pages
+    (``IndexSnapshot.apply_delta`` in place); structural changes, a
+    partition that outgrows its pages, or more than
+    ``config.snapshot_max_dirty_frac * P`` dirty partitions rebuild it.
 
     ``storage_dtype`` is "f32" (exact), "bf16" (half the scan bytes;
     products accumulate in f32) or "int8" (IVF-residual SQ8 codes, a
@@ -907,9 +970,10 @@ class BatchedSearchExecutor:
     (1 = one fixed-plan scan),
     ``union_cap`` the default union cap, ``headroom`` overrides the
     config's slot slack, and
+    ``page_size`` is the snapshot's page (``SNAPSHOT_PAGE``), and
     ``part_bucket`` pads the snapshot's partition count (sticky, with 25%
-    growth slack) so a few maintenance splits keep the scan operands'
-    shape; serving runtimes set 32.
+    growth slack) so a few maintenance splits keep the pack's shape;
+    serving runtimes set 32.
     """
 
     def __init__(self, index: QuakeIndex, impl: str = "auto",
@@ -917,7 +981,8 @@ class BatchedSearchExecutor:
                  storage_dtype: str = "f32",
                  union_cap: Optional[int] = None,
                  planner: Optional[str] = None, int8_rerank: bool = True,
-                 rounds: Optional[int] = None, part_bucket: int = 1):
+                 rounds: Optional[int] = None, part_bucket: int = 1,
+                 page_size: int = SNAPSHOT_PAGE):
         if storage_dtype not in STORAGE_DTYPES:
             raise ValueError(f"storage_dtype must be one of "
                              f"{STORAGE_DTYPES}, got {storage_dtype!r}")
@@ -937,13 +1002,18 @@ class BatchedSearchExecutor:
         self.union_cap = cfg.union_cap if union_cap is None else union_cap
         self.headroom = cfg.snapshot_headroom if headroom is None \
             else headroom
+        self.page_size = page_size
         self._mirror = None      # int8 re-rank: level-0 rows (N, d) host
-        self._mirror_base = None  # (P,) first mirror row of each partition
+        self._page_base = None   # (G,) first mirror row of each page
+        self._page_cents = None  # (G, d) int8: each page's centroid
         self._snap = None
         self._key = None         # fingerprint the snapshot reflects
-        self._valid = None       # (P, S_cap) bool, device
-        self._flat_ids = None    # (P*S_cap,) host
+        self._valid = None       # (G, S) bool, device
+        self._flat_ids = None    # (G*S,) host
         self._sizes = None       # (P,) host
+        self._page_start = None  # (P+1,) host
+        self._n_live = 0         # rows the snapshot holds
+        self.pages: Optional[PageDirectory] = None
         self.planner_cache = PlannerCache(index)
         self.full_rebuilds = 0   # refresh telemetry
         self.delta_refreshes = 0
@@ -961,17 +1031,12 @@ class BatchedSearchExecutor:
         return self.planner_cache._cent_norms
 
     def refresh(self):
-        """Full rebuild of the device snapshot.  The slot capacity is
-        sticky: a rebuild never shrinks it below the previous one's."""
+        """Full rebuild of the device snapshot, in pages."""
         with span("snapshot.rebuild"):
             lvl0 = self.index.levels[0]
-            max_sz = int(max((len(v) for v in lvl0.vectors), default=0))
-            cap = max(int(math.ceil(max_sz * max(self.headroom, 1.0))), 1)
-            if self._snap is not None:
-                cap = max(cap, int(self._snap.capacity))
             pad_to = self.part_bucket
             if self.part_bucket > 1:
-                # sticky too, with 25% growth slack; an absolute target that
+                # sticky, with 25% growth slack; an absolute target that
                 # covers the live count (from_index rounds up to a multiple)
                 pad_to = (-(-int(lvl0.num_partitions * 1.25)
                             // self.part_bucket) * self.part_bucket)
@@ -979,20 +1044,36 @@ class BatchedSearchExecutor:
                     pad_to = max(pad_to, int(self._snap.num_partitions))
                 pad_to = max(pad_to, lvl0.num_partitions)
             self._snap = None    # drop the old tensors before the new ones
+            self._valid = None
             snap = IndexSnapshot.from_index(
-                self.index, capacity=cap, dtype=STORAGE[self.storage_dtype],
-                pad_partitions_to=pad_to)
+                self.index, headroom=self.headroom,
+                dtype=STORAGE[self.storage_dtype], pad_partitions_to=pad_to,
+                page_size=self.page_size)
             self._valid = snap.ids >= 0
             self._flat_ids = to_host(snap.ids).reshape(-1)
             self._sizes = to_host(snap.sizes)
+            self._page_start = to_host(snap.page_start)
+            self._n_live = int(self._sizes.sum())
+            self.pages = PageDirectory.of(snap, self._sizes)
             if self.storage_dtype == "int8":
+                page_part = np.repeat(np.arange(len(self._sizes)),
+                                      np.diff(self._page_start))
+                self._page_cents = snap.centroids[
+                    torch.as_tensor(page_part, device=self.device)]
                 if self.int8_rerank:
                     sizes = lvl0.sizes().astype(np.int64)
                     self._mirror = np.concatenate(
                         [np.asarray(v, dtype=np.float32) for v in lvl0.vectors]
                         + [np.zeros((0, self.index.dim), np.float32)])
-                    self._mirror_base = np.concatenate(
-                        [[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+                    base = np.zeros(len(self._sizes), dtype=np.int64)
+                    base[:len(sizes)] = np.concatenate(
+                        [[0], np.cumsum(sizes)[:-1]])
+                    # page g of partition j starts (g - start[j]) pages
+                    # into j's mirror rows
+                    self._page_base = (
+                        base[page_part] + (np.arange(len(page_part))
+                                           - self._page_start[page_part])
+                        * snap.capacity)
             self._snap = snap
             self.planner_cache.ensure_fresh()
             self._key = self._fingerprint()
@@ -1019,20 +1100,24 @@ class BatchedSearchExecutor:
             self._key = self._fingerprint()
             return True
         cap = self._snap.capacity
-        if max(len(lvl0.vectors[j]) for j in dirty) > cap:
-            return False      # a partition outgrew its slack slots
+        slots = np.diff(self._page_start) * cap
+        if any(len(lvl0.vectors[j]) > slots[j] for j in dirty):
+            return False      # a partition outgrew its pages
         try:
-            patch = IndexSnapshot.build_patch(idx, dirty, cap)
+            patch = IndexSnapshot.build_patch(idx, dirty, cap,
+                                              self._page_start)
         except ValueError:
             return False
         # the executor owns its snapshot exclusively: patch in place
         self._snap = self._snap.apply_delta(patch, donate=True)
-        rows = to_device(patch.rows.astype(np.int64), self.device)
+        pages = to_device(patch.pages, self.device)
         self._valid.index_copy_(
-            0, rows, to_device(patch.ids >= 0, self.device))
-        self._flat_ids.reshape(self._snap.num_partitions, cap)[
-            patch.rows] = patch.ids
+            0, pages, to_device(patch.ids >= 0, self.device))
+        self._flat_ids.reshape(self._snap.num_pages, cap)[
+            patch.pages] = patch.ids
         self._sizes[patch.rows] = patch.sizes
+        self._n_live = int(self._sizes.sum())
+        self.pages = PageDirectory.of(self._snap, self._sizes)
         self.planner_cache.ensure_fresh()   # refine deltas move centroids
         self._key = self._fingerprint()
         self.delta_refreshes += 1
@@ -1044,6 +1129,7 @@ class BatchedSearchExecutor:
         rebuilds them from the index."""
         self._snap = None
         self._valid = None
+        self._page_cents = None
         self._key = None
 
     def snapshot(self):
@@ -1070,7 +1156,7 @@ class BatchedSearchExecutor:
         b, k2 = flat.shape
         cap = self._snap.capacity
         f = np.maximum(flat, 0)
-        rows = np.where(flat >= 0, self._mirror_base[f // cap] + f % cap, 0)
+        rows = np.where(flat >= 0, self._page_base[f // cap] + f % cap, 0)
         if self._mirror.shape[0] == 0:
             x = np.zeros((b, k2, q.shape[1]), dtype=np.float32)
         else:
@@ -1110,6 +1196,7 @@ class BatchedSearchExecutor:
                                recall_estimate=np.zeros(0))
         with span("search_batch"):
             snap = self.snapshot()
+            self._count_layout()
             impl = impl or self.impl
             rounds = self.rounds if rounds is None else rounds
             if rounds is not None and rounds < 1:
@@ -1133,7 +1220,8 @@ class BatchedSearchExecutor:
                               u_bucket=self.u_bucket, union_cap=cap,
                               planner=self.planner,
                               cent_norms=self._cent_norms,
-                              cache=self.planner_cache, q_dev=q_dev)
+                              cache=self.planner_cache, q_dev=q_dev,
+                              pages=self.pages)
             metric = self.index.config.metric
             rerank = snap.scales is not None and self._mirror is not None
             with span("scan"):
@@ -1147,7 +1235,7 @@ class BatchedSearchExecutor:
                     dd, flat = ops.scan_selected_topk_q8(
                         q_dev, snap.data, snap.scales, self._valid, sel_dev,
                         qmask_dev, 2 * k if rerank else k, metric=metric,
-                        centroids=snap.centroids, impl=impl)
+                        centroids=self._page_cents, impl=impl)
                 else:
                     dd, flat = ops.scan_selected_topk(
                         q_dev, snap.data, self._valid, sel_dev, qmask_dev,
@@ -1163,6 +1251,15 @@ class BatchedSearchExecutor:
                         (plan.qmask[:, :plan.n_real].astype(np.int64)
                          * sizes_sel[None, :]).sum()),
                     nprobe=plan.nprobe, recall_estimate=plan.recall_est)
+
+    def _count_layout(self) -> None:
+        """The snapshot that serves a batch, for the fill metrics: its
+        slots, live rows and pages (``quake.snapshot.*``, counted while
+        the profiler records)."""
+        g = self._snap.num_pages
+        count("snapshot.slots", g * self._snap.capacity)
+        count("snapshot.live_rows", self._n_live)
+        count("snapshot.pages", g)
 
     def _result_rows(self, q: np.ndarray, dd: torch.Tensor,
                      flat: torch.Tensor, k: int, rerank: bool
@@ -1190,9 +1287,11 @@ class BatchedSearchExecutor:
         ``(dists (B, k_keep), flat idx, stats)`` (``run_round_loop``'s
         contract).  It serves both round drivers: ``_search_rounds`` and
         the serving scheduler's riding rounds, whose row set changes
-        between rounds.  ``u_pow2`` pads the union on a geometric ladder
-        (``u_bucket * 2^i``) instead of linear ``u_bucket`` steps.  With
-        ``seq_host`` the comparison count is exact."""
+        between rounds.  The packed partition union becomes the pages
+        the scan reads (``expand_pages``).  ``u_pow2`` pads the union on
+        a geometric ladder (``u_bucket * 2^i``) instead of linear
+        ``u_bucket`` steps.  With ``seq_host`` the comparison count is
+        exact."""
         snap = self.snapshot() if snap is None else snap
         with span("scan"):
             # the snapshot's (padded) partition count: stable across
@@ -1210,6 +1309,9 @@ class BatchedSearchExecutor:
                 take_dev = to_device(take, self.device)
             sel_dev, qmask_dev = ops.pack_round_masked(
                 seq_dev, take_dev, prio0, n_real, p=p, u_pad=u_pad)
+            sel_dev, qmask_dev = expand_pages(sel_dev, qmask_dev, kept,
+                                              self.pages, self.u_bucket,
+                                              u_pow2)
             sizes_kept = self._sizes[np.asarray(kept, dtype=np.int64)]
             vectors = int(sizes_kept.sum())
             if seq_host is not None:
@@ -1223,7 +1325,7 @@ class BatchedSearchExecutor:
                 d, flat = ops.scan_selected_topk_q8(
                     q_dev, snap.data, snap.scales, self._valid, sel_dev,
                     qmask_dev, k_keep, metric=self.index.config.metric,
-                    centroids=snap.centroids, impl=impl)
+                    centroids=self._page_cents, impl=impl)
             else:
                 d, flat = ops.scan_selected_topk(
                     q_dev, snap.data, self._valid, sel_dev, qmask_dev,

@@ -764,6 +764,109 @@ def test_grouped_driver_width_limits_on_the_card(dev):
                                         device=dev).expand(3, 16))
 
 
+def _wide_skewed(n, d, seed):
+    """Rows of 24 Gaussian clusters whose sizes fall as 1 / i."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0, 3.0, (24, d))
+    w = 1.0 / np.arange(1, 25)
+    pick = rng.choice(24, size=n, p=w / w.sum())
+    return (centers[pick] + rng.normal(0, 1.0, (n, d))).astype(np.float32)
+
+
+def _near(a, b, q, x, ids):
+    """|a - b| within 1e-5 of ||q||^2 + ||x||^2: at d = 3,072 the
+    expanded form's rounding grows with the norms (the benchmark's
+    ``dist_gap`` is normalised the same way)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    q2 = np.sum(np.asarray(q, np.float64) ** 2, axis=1)[:, None]
+    x2 = np.sum(np.asarray(x, np.float64) ** 2, axis=1)[np.maximum(ids, 0)]
+    miss = np.isinf(b)                 # fewer rows probed than k
+    np.testing.assert_array_equal(np.isinf(a), miss)
+    assert np.all(np.abs(a[~miss] - b[~miss]) <= 1e-5 * (q2 + x2)[~miss])
+
+
+def _paged_executor(idx, **kw):
+    """An executor whose snapshot has pages of 64 slots."""
+    return mq.BatchedSearchExecutor(idx, page_size=64, **kw)
+
+
+@pytest.fixture(scope="module")
+def wide_pair():
+    """A 3,072-wide index on the CPU and its copy on the card: skewed
+    partitions that span several 64-row pages."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
+    x = _wide_skewed(4000, 3072, 8)
+    cpu = QuakeIndex.build(x, num_partitions=20, kmeans_iters=4,
+                           device="cpu")
+    gpu = index_from_arrays(index_to_arrays(cpu), device="cuda")
+    q = (x[np.random.default_rng(9).integers(0, len(x), 200)]
+         + 0.05 * np.random.default_rng(10).normal(size=(200, 3072))
+         ).astype(np.float32)
+    return x, cpu, gpu, q
+
+
+@pytest.mark.parametrize("mode", [dict(nprobe=6, rounds=1), dict()],
+                         ids=["nprobe", "aps"])
+def test_paged_search_batch_at_3072_matches_the_plain_path(dev, wide_pair,
+                                                           mode):
+    """``search_batch`` over 64-row pages at d = 3,072 (the scan stages
+    its queries in column chunks): the card's kernels answer as the plain
+    path on the CPU over the same pages and plans."""
+    x, cpu, gpu, q = wide_pair
+    ex_c, ex_g = (_paged_executor(i, planner="vectorized")
+                  for i in (cpu, gpu))
+    assert sti._placement("f32", 3072, 128, dev.index or 0) \
+        & sti.QUERY_CHUNKS
+    before = sti.LAUNCHES.count
+    rg, rc = ex_g.search(q, 100, **mode), ex_c.search(q, 100, **mode)
+    assert sti.LAUNCHES.count - before == rg.rounds
+    assert not ex_g._snap.dense and ex_g._snap.num_pages > 20
+    assert rg.rounds == rc.rounds and rg.comparisons == rc.comparisons
+    _near(rg.dists, rc.dists, q, x, rc.ids)
+    assert _recall(torch.as_tensor(rg.ids), torch.as_tensor(rc.ids)) \
+        >= 0.999
+
+
+def test_paged_default_executor_at_3072_is_exact_at_every_probe(dev,
+                                                                wide_pair):
+    """The default card executor (the fused planner: the centroid pass at
+    d = 3,072 is the ``scan_topk`` kernel) over pages, every partition
+    probed: exact k-NN."""
+    x, _, gpu, q = wide_pair
+    r = _paged_executor(gpu).search(q, 50, nprobe=gpu.num_partitions,
+                                    rounds=1)
+    xs = torch.as_tensor(x, device=dev)
+    qs = torch.as_tensor(q, device=dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d = ((qs * qs).sum(1, keepdim=True) + (xs * xs).sum(1)[None, :]
+         - 2.0 * qs @ xs.T)
+    want_d, want_i = torch.topk(d, 50, dim=1, largest=False)
+    _near(r.dists, want_d.cpu().numpy(), q, x, want_i.cpu().numpy())
+    assert _exact_recall(r.ids, want_i.cpu().numpy()) >= 0.999
+
+
+def test_wide_build_on_the_card(dev):
+    """The build at d = 3,072 on the card: ``kmeans_assign`` agrees with
+    its plain version, and the Lloyd build keeps every partition alive
+    and every row."""
+    x = _wide_skewed(6000, 3072, 11)
+    xs = torch.as_tensor(x, device=dev)
+    cs = xs[::97].contiguous()
+    ak, mk = ops.kmeans_assign(xs, cs, impl="cuda")
+    ap, mp = ops.kmeans_assign(xs, cs, impl="torch")
+    assert (ak.long() == ap.long()).float().mean().item() > 0.999
+    c2 = (cs * cs).sum(1).double().cpu().numpy()
+    x2 = np.sum(x.astype(np.float64) ** 2, axis=1)
+    assert np.all(np.abs(mk.cpu().numpy() - mp.cpu().numpy().astype(
+        np.float64)) <= 1e-5 * (x2 + c2[ap.long().cpu().numpy()]))
+    idx = QuakeIndex.build(x, num_partitions=40, kmeans_iters=4,
+                           device=dev)
+    sizes = idx.levels[0].sizes()
+    assert sizes.sum() == len(x) and (sizes > 0).all()
+    idx.check_invariants()
+
+
 def test_int8_executor_on_the_card_launches_the_q8_kernel(dev):
     ds = datasets.clustered(4000, 16, n_clusters=16, seed=0)
     q = datasets.queries_near(ds, 48, seed=3)

@@ -212,7 +212,11 @@ def test_round_loop_deadline_matches_reference(jbase, ds):
         td, ti, nprobe, r_est, n_rounds, trace, stats = m.run_round_loop(
             rplan, 10, 0.99, idx._beta_table, m._batch_rho_fn(idx, q),
             scan_round, deadline_s=0.0025, clock=clock)
-        out.append((np.asarray(ti), nprobe, n_rounds,
+        # flat indices address each package's own snapshot layout (the
+        # port's is paged): compare the external ids they name
+        flat = np.asarray(ti)
+        ext = np.where(flat >= 0, ex._flat_ids[np.maximum(flat, 0)], -1)
+        out.append((ext, nprobe, n_rounds,
                     trace["budget_expired"], trace["timed_out_rows"],
                     stats))
     (ji, jn, jr, je, jt, jst), (pi, pn, pr, pe, pt, pst) = out

@@ -28,6 +28,7 @@ APS_PARENTS = {
     "quake.round": {"quake.rounds"},
     "quake.round.select": {"quake.round"},
     "quake.scan": {"quake.round"},
+    "quake.plan.pages": {"quake.scan"},
     "quake.merge": {"quake.round"},
     "quake.round.estimate": {"quake.round"},
     "quake.result": {"quake.search_batch"},
@@ -40,6 +41,7 @@ NPROBE_PARENTS = {
     "quake.plan": {"quake.search_batch"},
     "quake.plan.centroids": {"quake.plan"},
     "quake.plan.pack": {"quake.plan"},
+    "quake.plan.pages": {"quake.plan.pack"},
     "quake.scan": {"quake.search_batch"},
     "quake.result": {"quake.search_batch"},
     "quake.wait": {"quake.plan.pack", "quake.scan", "quake.result"},
