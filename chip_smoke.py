@@ -936,7 +936,8 @@ def main() -> int:
     counters = {"scan_topk_indexed": sti.LAUNCHES, "scan_topk": st.LAUNCHES,
                 "kmeans_assign": ka.LAUNCHES,
                 "scan_topk_indexed_q8": sti.LAUNCHES_Q8,
-                "flash_attention": fa.LAUNCHES}
+                "flash_attention": fa.LAUNCHES,
+                "scan_topk_indexed_tiled": sti.LAUNCHES_TILED}
     path_launches = {}
 
     def start_path():
@@ -5140,7 +5141,8 @@ def hold_wide_f32(name, sti, data, valid, sel, qmask, qc, kp) -> dict:
         rows_read * d * elem + b * d * elem + 2 * b * kp * 4 + b * u
         + rows_read, 2.0 * active * d, build.F32_FLOPS_PER_S)
     where = sti._placement("bf16" if elem == 2 else "f32", d, kp,
-                           torch.cuda.current_device())
+                           torch.cuda.current_device(),
+                           sti.design(qc, data))
     row = {"d": d, "B": b, "U": u, "S": int(data.shape[1]), "k_pad": kp,
            "max_abs_err": err, "tol": tol, "ms": ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "rows_read": rows_read,

@@ -37,12 +37,12 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
     "scan_topk_indexed": {
         # q, data, valid, nrows, sel, qmask, order, ws, part_d, part_i,
         # gbuf, run_d, run_i, B, U, S, d, K, Uc, scratch_blocks,
-        # query_chunks, is_bf16, l2, stream
+        # placement, is_bf16, l2, stream
         "scan_indexed": "ppppppppppppp" + "iiiiiiiiii" + "p",
-        # qmask, order, ws, B, U, Uc, stream
-        "group_queries": "pppiiip",
-        # d, K, is_bf16
-        "scan_indexed_placement": "iii",
+        # qmask, order, ws, B, U, Uc, qt, stream
+        "group_queries": "pppiiiip",
+        # d, K, is_bf16, tiled
+        "scan_indexed_placement": "iiii",
     },
     "scan_topk_indexed_q8": {
         # q_codes, q_scales, codes, scales, aux, qc, valid, nrows, sel,

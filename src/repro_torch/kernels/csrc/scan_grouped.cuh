@@ -1,8 +1,13 @@
 // The grouped partition-scan driver of the two indexed scans
 // (scan_topk_indexed.cu for f32/bf16 rows, scan_topk_indexed_q8.cu for
-// int8 codes).  Each kernel plugs in a row policy; the driver groups the
-// queries by the partitions they probe, stages each partition's rows
-// once per group, and keeps every query's top-K (scan_common.cuh).
+// int8 codes).  It groups the queries by the partitions they
+// probe, stages each partition's rows once per tile of its queries, and
+// keeps every query's top-K (scan_common.cuh).  Two designs scan a tile:
+// the row-per-thread design here (grouped_scan_kernel, a row policy per
+// row type, tiles of QT queries), and the register-tiled design of
+// scan_topk_indexed.cu (grouped_scan_kernel_tiled, tiles of 64 queries,
+// for the wide f32 calls the wrapper's design() sends it); run_grouped
+// drives either.
 //
 // Inputs: B queries, a union of U selected partitions sel[u] of a
 // (P, S, width) snapshot, and qmask (B, U): query b sees union slot u only
@@ -13,47 +18,52 @@
 // 1. group_queries_kernel (one block per u) compacts column u of qmask
 //    into the list of queries that probe u, in increasing b, and its
 //    count n_u.  tile_list_kernel (one block) turns the counts into a
-//    flat work list of tiles of up to QT of a slot's queries, the slots
-//    taken in the order the wrapper gives (within each chunk of Uc
-//    slots, the longest partitions first): tile_off[u] is where u's
-//    tiles start, chunk_off[c] where chunk c's start, work_u[t] the slot
-//    of tile t.  Both run on the device, so the host never waits for the
-//    plan's shape.
-// 2. grouped_scan_kernel, per chunk: a persistent grid (as many blocks
+//    flat work list of tiles of up to qt of a slot's queries (qt the
+//    launched design's width), the slots taken in the order the wrapper
+//    gives (within each chunk of Uc slots, the longest partitions first):
+//    tile_off[u] is where u's tiles start, chunk_off[c] where chunk c's
+//    start, work_u[t] the slot of tile t.  Both run on the device, so the
+//    host never waits for the plan's shape.
+// 2. The design's kernel, per chunk: a persistent grid (as many blocks
 //    as fit on the card) takes the chunk's tiles in order through an
 //    atomic counter, so the longest tiles start first and blocks that
-//    drew short ones take more.  A tile is (u, up to QT of u's queries):
-//    the partition's live rows are read once per QT of its queries, and
+//    drew short ones take more.  A tile is (u, up to qt of u's queries):
+//    the partition's live rows are read once per qt of its queries, and
 //    blocks exist only for work that is there.  Which block takes which
 //    tile does not change the result: each tile writes its own (query,
 //    slot) lists.  A grid-stride walk was the alternative; with tiles of
 //    very different lengths (partitions hold 0 to S rows) it leaves the
 //    SMs that drew long ones working alone.
 //
-// Inside a tile, rows go through shared memory TR at a time in a
-// STAGES-deep cp.async ring (16-byte copies when the row width and base
-// allow, plain loads otherwise), each staged row padded by 16 bytes so
-// the 16-byte reads of eight consecutive rows hit distinct banks.  (One
-// bulk copy a row on an mbarrier, Hopper's copy engine, was slower here:
-// 512-byte rows are small transfers for it.)  Rows
-// wider than the policy's DCH units are staged in column chunks, the
-// accumulators carried in registers from chunk to chunk, so the row
-// ring does not grow with d.  The tile's queries are staged whole, once
-// a tile, while the block fits the card's shared memory (first with the
+// The row-per-thread design.  What bounds it at 128-d (the SIFT cells):
+// the per-(query, page) top-K lists, not the bytes or the products (a
+// page holds up to 1,024 rows and each probing query keeps 128 of them,
+// sorted, then merged); at 3,072-d its products, which run below a
+// seventh of the FMA rate: each 16-byte read of a staged row feeds only
+// 4 FMAs per query.  Inside a tile, rows go through shared memory TR at a
+// time in a STAGES-deep cp.async ring (16-byte copies when the row width
+// and base allow, plain loads otherwise), each staged row padded by 16
+// bytes so the 16-byte reads of eight consecutive rows hit distinct
+// banks.  (One bulk copy a row on an mbarrier, Hopper's copy engine, was
+// slower here: 512-byte rows are small transfers for it.)  Rows wider
+// than the policy's DCH units are staged in column chunks, the
+// accumulators carried in registers from chunk to chunk, so the row ring
+// does not grow with d.  The tile's queries are staged whole, once a
+// tile, while the block fits the card's shared memory (first with the
 // top-K buffers there, then with them in global memory: see
 // grouped_placement); past that width each stage of the ring also
-// carries the tile's queries' matching column chunk (GROUPED_QUERY_CHUNKS),
-// loaded beside the rows' chunk, so no part of the block grows with d
-// and rows of any width run.  All lanes of a warp read the same query
-// unit (a broadcast), so the query chunks need no bank padding; their
-// chunk is the rows' DCH, so the 16-byte units line up for the q8
-// policy's __dp4a.  Thread t owns row t % TR of each
-// stage and queries t / TR, t / TR + QB, .. of the tile (QB = 256 / TR):
-// every warp computes whatever the number of queries, and each 16-byte
-// read of a staged row feeds 4-8 FMAs (or 4 __dp4a) per query, the
-// queries' vectors being broadcast reads.  The threads of the first
-// query block also compute the row's own terms (||x||^2 for float rows),
-// once per row.  The products go to a (QT, TR) tile in shared memory,
+// carries the tile's queries' matching column chunk
+// (GROUPED_QUERY_CHUNKS), loaded beside the rows' chunk, so no part of
+// the block grows with d and rows of any width run.  All lanes of a warp
+// read the same query unit (a broadcast), so the query chunks need no
+// bank padding; their chunk is the rows' DCH, so the 16-byte units line
+// up for the q8 policy's __dp4a.  Thread t owns row t % TR of each stage
+// and queries t / TR, t / TR + QB, .. of the tile (QB = 256 / TR): every
+// warp computes whatever the number of queries, and each 16-byte read of
+// a staged row feeds 4-8 FMAs (or 4 __dp4a) per query, the queries'
+// vectors being broadcast reads.  The threads of the first query block
+// also compute the row's own terms (||x||^2 for float rows), once per
+// row.  The products go to a (QT, TR) tile in shared memory,
 // double-buffered by row tile: while the block computes row tile t + 1,
 // the warps that own the tile's queries (one query per warp up to 8, on
 // the warps with the fewest products to sum) form row tile t's distances
@@ -66,7 +76,7 @@
 
 namespace quake {
 
-constexpr int QT = 16;               // queries per tile
+constexpr int QT = 16;               // queries per tile (row per thread)
 constexpr int MQ = QT / WARPS;       // queries whose top-K a warp keeps
 constexpr int STAGES = 3;            // depth of the row ring
 constexpr int GROUP_THREADS = 256;
@@ -101,10 +111,12 @@ __device__ inline int block_exclusive_scan(int v, int& total) {
 }
 
 // qlist[u * B + i] = the i-th query b (increasing) with qmask[b, u];
-// qcount[u] = their number; ntiles[u] = ceil(qcount[u] / QT).
+// qcount[u] = their number; ntiles[u] = ceil(qcount[u] / qt), qt the
+// launched design's queries a tile.
 __global__ void __launch_bounds__(GROUP_THREADS) group_queries_kernel(
-    const uint8_t* __restrict__ qmask, int B, int U, int* __restrict__ qlist,
-    int* __restrict__ qcount, int* __restrict__ ntiles) {
+    const uint8_t* __restrict__ qmask, int B, int U, int qt,
+    int* __restrict__ qlist, int* __restrict__ qcount,
+    int* __restrict__ ntiles) {
   const int u = blockIdx.x, tid = threadIdx.x;
   int base = 0;
   for (int b0 = 0; b0 < B; b0 += 4 * GROUP_THREADS) {
@@ -123,7 +135,7 @@ __global__ void __launch_bounds__(GROUP_THREADS) group_queries_kernel(
   }
   if (tid == 0) {
     qcount[u] = base;
-    ntiles[u] = (base + QT - 1) / QT;
+    ntiles[u] = (base + qt - 1) / qt;
   }
 }
 
@@ -169,7 +181,8 @@ struct GroupedArgs {
   float* part_d;           // (B, Uc, K)
   int* part_i;
   float* gbuf_d;           // null: top-K buffers in shared memory; else
-  int* gbuf_i;             //   gridDim.x * QT buffers of buffer_size(K)
+  int* gbuf_i;             //   gridDim.x * (queries a tile) buffers of
+                           //   buffer_size(K)
   int B, S, K, u0, Uc;
   bool query_chunks;       // the queries staged a column chunk a stage
 };
@@ -533,29 +546,32 @@ __global__ void __launch_bounds__(THREADS) grouped_scan_kernel(
 
 // The int32 workspace of one scan, in order: qlist (U, B), qcount (U,),
 // ntiles (U,), tile_off (U,), chunk_off (nchunks + 1,), work_u
-// (U * ceil(B / QT),) and one tile counter per chunk.
+// (U * ceil(B / qt),) and one tile counter per chunk; qt is the launched
+// design's queries a tile.
 struct GroupedWs {
   int *qlist, *qcount, *ntiles, *tile_off, *chunk_off, *work_u, *counters;
 
-  __host__ GroupedWs(int* ws, int B, int U, int nchunks) {
+  __host__ GroupedWs(int* ws, int B, int U, int nchunks, int qt) {
     qlist = ws;
     qcount = qlist + (size_t)U * B;
     ntiles = qcount + U;
     tile_off = ntiles + U;
     chunk_off = tile_off + U;
     work_u = chunk_off + nchunks + 1;
-    counters = work_u + (size_t)U * ((B + QT - 1) / QT);
+    counters = work_u + (size_t)U * ((B + qt - 1) / qt);
   }
 };
 
-// Step 1: the grouping kernels, into ws; order is the slots' order.
+// Step 1: the grouping kernels, into ws, in tiles of qt queries; order is
+// the slots' order.
 __host__ inline cudaError_t launch_grouping(const uint8_t* qmask,
                                             const int* order,
                                             const GroupedWs& w, int B, int U,
-                                            int Uc, cudaStream_t stream) {
+                                            int Uc, int qt,
+                                            cudaStream_t stream) {
   const int nchunks = (U + Uc - 1) / Uc;
   group_queries_kernel<<<U, GROUP_THREADS, 0, stream>>>(
-      qmask, B, U, w.qlist, w.qcount, w.ntiles);
+      qmask, B, U, qt, w.qlist, w.qcount, w.ntiles);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   tile_list_kernel<<<1, TILE_LIST_THREADS, 0, stream>>>(
@@ -572,12 +588,15 @@ __host__ inline cudaError_t launch_grouping(const uint8_t* qmask,
 // queries and the buffers in the wrapper's global scratch
 // (GROUPED_GLOBAL_BUFS), then the same two with the queries staged a
 // column chunk a stage (| GROUPED_QUERY_CHUNKS).  The last does not grow
-// with width or K, so every width has a layout.
+// with width or K, so every width has a layout.  GROUPED_TILED marks the
+// register-tiled design of scan_topk_indexed.cu, which has layouts of its
+// own (tiled_placement there).
 enum { GROUPED_SMEM_BUFS = 0, GROUPED_GLOBAL_BUFS = 1,
-       GROUPED_QUERY_CHUNKS = 4 };
+       GROUPED_QUERY_CHUNKS = 4, GROUPED_TILED = 8 };
 
-template <class Pol>
-__host__ cudaError_t grouped_placement(int width, int K, int& placement) {
+// The device's opt-in shared memory a block less fn's static shared
+// memory.
+__host__ inline cudaError_t smem_limit(const void* fn, size_t& limit) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -585,10 +604,18 @@ __host__ cudaError_t grouped_placement(int width, int K, int& placement) {
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(
-      &attr, reinterpret_cast<const void*>(&grouped_scan_kernel<Pol>));
+  err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return err;
-  const size_t limit = (size_t)optin - attr.sharedSizeBytes;
+  limit = (size_t)optin - attr.sharedSizeBytes;
+  return cudaSuccess;
+}
+
+template <class Pol>
+__host__ cudaError_t grouped_placement(int width, int K, int& placement) {
+  size_t limit = 0;
+  const cudaError_t err = smem_limit(
+      reinterpret_cast<const void*>(&grouped_scan_kernel<Pol>), limit);
+  if (err != cudaSuccess) return err;
   const bool small = (size_t)QT * buffer_size(K) * 8 <= TOPK_SMEM_BYTES;
   if (small && GroupedSmem<Pol>(width, K, false, false).total <= limit)
     placement = GROUPED_SMEM_BUFS;
@@ -601,29 +628,31 @@ __host__ cudaError_t grouped_placement(int width, int K, int& placement) {
   return cudaSuccess;
 }
 
-// The whole scan: grouping, then per chunk of Uc union slots pass one and
-// the merge into run (B, K).  gbuf is null with GROUPED_SMEM_BUFS; the
-// layout flag query_chunks is grouped_placement's GROUPED_QUERY_CHUNKS.
-template <class Pol>
-cudaError_t launch_grouped(const Pol& pol, const int* sel, const int* nrows,
-                           const uint8_t* qmask, const int* order, int* ws,
-                           float* part_d, int* part_i, float* gbuf,
-                           int scratch_blocks, bool query_chunks,
-                           float* run_d, int* run_i, int B, int U, int S,
-                           int K, int Uc, cudaStream_t stream) {
+// The whole scan of either design: grouping into tiles of qt queries, then
+// per chunk of Uc union slots pass one, launch(args, grid) of the design's
+// kernel fn in blocks of `threads` taking `smem` bytes of shared memory,
+// and the merge into run (B, K).  gbuf is null when the top-K buffers are in shared
+// memory, else scratch_blocks * qt buffers of buffer_size(K) distances
+// and as many indices.
+template <class Launch>
+cudaError_t run_grouped(const void* fn, int threads, size_t smem, int qt,
+                        Launch launch,
+                        const int* sel, const int* nrows,
+                        const uint8_t* qmask, const int* order, int* ws,
+                        float* part_d, int* part_i, float* gbuf,
+                        int scratch_blocks, bool query_chunks, float* run_d,
+                        int* run_i, int B, int U, int S, int K, int Uc,
+                        cudaStream_t stream) {
   if (K < 1 || K > K_MAX || (K & (K - 1)) || Uc < 1)
     return cudaErrorInvalidValue;
   const int nchunks = (U + Uc - 1) / Uc;
-  const GroupedWs w(ws, B, U, nchunks);
-  cudaError_t err = launch_grouping(qmask, order, w, B, U, Uc, stream);
+  const GroupedWs w(ws, B, U, nchunks, qt);
+  cudaError_t err = launch_grouping(qmask, order, w, B, U, Uc, qt, stream);
   if (err != cudaSuccess) return err;
 
   const bool global = gbuf != nullptr;
-  // past the card's limit (the wrapper asks grouped_placement first)
+  // past the card's limit (the wrapper asks the placement first)
   // allow_smem fails and the launch returns its error
-  const size_t smem =
-      GroupedSmem<Pol>(pol.width, K, global, query_chunks).total;
-  const void* fn = reinterpret_cast<const void*>(&grouped_scan_kernel<Pol>);
   err = allow_smem(fn, smem);
   if (err != cudaSuccess) return err;
   err = allow_smem(reinterpret_cast<const void*>(&merge_lists_kernel),
@@ -633,7 +662,7 @@ cudaError_t launch_grouped(const Pol& pol, const int* sel, const int* nrows,
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
                                                       smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -641,7 +670,7 @@ cudaError_t launch_grouped(const Pol& pol, const int* sel, const int* nrows,
   GroupedArgs a{sel, nrows, w.qlist, w.qcount, w.tile_off, w.work_u,
                 w.chunk_off, 0, nullptr, part_d, part_i, gbuf,
                 global ? reinterpret_cast<int*>(
-                             gbuf + (size_t)scratch_blocks * QT * buf)
+                             gbuf + (size_t)scratch_blocks * qt * buf)
                        : nullptr,
                 B, S, K, 0, 0, query_chunks};
   for (int c = 0; c < nchunks; ++c) {
@@ -649,10 +678,10 @@ cudaError_t launch_grouped(const Pol& pol, const int* sel, const int* nrows,
     a.u0 = c * Uc;
     a.Uc = min(Uc, U - a.u0);
     a.counter = w.counters + c;
-    const long most = (long)a.Uc * ((B + QT - 1) / QT);
+    const long most = (long)a.Uc * ((B + qt - 1) / qt);
     int grid = (int)min((long)sms * per_sm, most);
     if (global) grid = min(grid, scratch_blocks);
-    grouped_scan_kernel<Pol><<<grid, THREADS, smem, stream>>>(a, pol);
+    launch(a, grid);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     merge_lists_kernel<<<B, MERGE_THREADS, merge_smem_bytes(K), stream>>>(
@@ -661,6 +690,27 @@ cudaError_t launch_grouped(const Pol& pol, const int* sel, const int* nrows,
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// The row-per-thread design: run_grouped with grouped_scan_kernel<Pol>;
+// query_chunks is grouped_placement's GROUPED_QUERY_CHUNKS.
+template <class Pol>
+cudaError_t launch_grouped(const Pol& pol, const int* sel, const int* nrows,
+                           const uint8_t* qmask, const int* order, int* ws,
+                           float* part_d, int* part_i, float* gbuf,
+                           int scratch_blocks, bool query_chunks,
+                           float* run_d, int* run_i, int B, int U, int S,
+                           int K, int Uc, cudaStream_t stream) {
+  const size_t smem =
+      GroupedSmem<Pol>(pol.width, K, gbuf != nullptr, query_chunks).total;
+  return run_grouped(
+      reinterpret_cast<const void*>(&grouped_scan_kernel<Pol>), THREADS,
+      smem, QT,
+      [&](const GroupedArgs& a, int grid) {
+        grouped_scan_kernel<Pol><<<grid, THREADS, smem, stream>>>(a, pol);
+      },
+      sel, nrows, qmask, order, ws, part_d, part_i, gbuf, scratch_blocks,
+      query_chunks, run_d, run_i, B, U, S, K, Uc, stream);
 }
 
 }  // namespace quake

@@ -16,14 +16,22 @@ scan_topk_indexed.cu``) for CUDA tensors and runs the plain version
 beside it for CPU tensors.  Both kernels run the grouped driver of
 ``csrc/scan_grouped.cuh``: the queries are grouped on the device by the
 union slots they probe (``group_queries_plain`` is that step in plain
-PyTorch), and one block scans one partition for up to ``QT`` of its
-queries.  Every ``k_pad`` up to ``K_MAX`` runs on the kernels; past what
-a block's shared memory holds, the per-query top-K buffers go to a global
-scratch the wrapper allocates.  Rows of any width run: a block stages its
-rows in column chunks through a ring, and its tile's queries whole while
-they fit beside the ring (up to 1,892 f32 or 1,888 bf16 values, or 4,832
-int8 codes, on an H100's 227 KB a block), past that a column chunk a
-stage of the ring too (``QUERY_CHUNKS``).
+PyTorch), and one block scans one partition for a tile of its queries.
+Two designs do the scanning.  The register-tiled design (``TILED``,
+tiles of ``QW`` queries) scans the calls where the products bound the
+scan: ``design`` sends it f32 rows of ``TILED_MIN_D`` and wider, a
+multiple of 4 and 16-byte aligned, in calls of ``TILED_MIN_B`` queries
+or more.  The row-per-thread design (tiles of ``QT`` queries) scans the
+rest (narrower or unaligned f32 rows, small calls, bf16 rows and int8
+codes): a block stages its rows in column chunks through a ring, and its
+tile's queries whole while they fit beside the ring (up to 1,892 f32 or
+1,888 bf16 values, or 4,832 int8 codes, on an H100's 227 KB a block),
+past that a column chunk a stage of the ring too (``QUERY_CHUNKS``).
+The library lays out the design it is given, and each scan call that
+takes the tiled one adds to the program counter ``quake.scan.tiled``.
+Every ``k_pad`` up to ``K_MAX`` runs on the
+kernels; past what a block's shared memory holds, the per-query top-K
+buffers go to a global scratch the wrapper allocates.
 
 The int8 variant ``scan_topk_indexed_q8`` (``csrc/scan_topk_indexed_q8.cu``,
 replacing ``scan_topk_indexed_q8_pallas``) scans IVF-residual int8 codes:
@@ -46,12 +54,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..obs import tracing
 from . import build, ref
 from .ref import MASK_DIST, quantize_int8, quantize_int8_residual
 
-__all__ = ["K_MAX", "LAUNCHES", "LAUNCHES_Q8", "QT", "QUERY_CHUNKS",
-           "buffer_size",
-           "meta_placement", "work",
+__all__ = ["K_MAX", "LAUNCHES", "LAUNCHES_Q8", "LAUNCHES_TILED", "QT",
+           "QUERY_CHUNKS", "QW", "TILED", "TILED_MIN_B", "TILED_MIN_D",
+           "buffer_size", "design", "meta_placement", "work",
            "group_queries_cuda", "group_queries_plain", "live_rows",
            "slot_order",
            "quantize_int8", "quantize_int8_residual", "scan_topk_indexed",
@@ -63,12 +72,20 @@ Tensor = torch.Tensor
 
 LAUNCHES = build.LaunchCounter("scan_topk_indexed")
 LAUNCHES_Q8 = build.LaunchCounter("scan_topk_indexed_q8")
+LAUNCHES_TILED = build.LaunchCounter("scan_topk_indexed_tiled")
 K_MAX = 16384                # largest k_pad the kernels take
 SCRATCH_BYTES = 2 << 30      # bound on the (B, Uc, k_pad) partial lists
-QT = 16                      # queries per tile of the grouped driver
+QT = 16                      # queries per tile, row-per-thread design
+QW = 64                      # queries per tile, register-tiled design
 TOPK_SCRATCH_BYTES = 256 << 20   # bound on the global top-K buffers
 GLOBAL_BUFS = 1              # placement: top-K buffers in global scratch
 QUERY_CHUNKS = 4             # placement flag: queries staged by chunks
+TILED = 8                    # placement flag: the register-tiled design
+# the narrowest f32 rows, and the fewest queries of a call, that the
+# tiled design scans (both designs timed on the card at the benchmark
+# cells' plans, scripts/scan_crossover.py)
+TILED_MIN_D = 256
+TILED_MIN_B = 32
 
 
 def _check_k_pad(k_pad: int) -> None:
@@ -113,12 +130,37 @@ def work(b: int, u: int, s: int, d: int, k_pad: int, elem: int,
     return 2.0 * active * d, float(nbytes)
 
 
-def meta_placement(k_pad: int) -> int:
-    """Where ``_placement`` puts the top-K buffers, for a call on meta
-    tensors with no library: in shared memory (0) while they take at
-    most the kernels' ``TOPK_SMEM_BYTES`` (64 KB), else in global scratch
-    (``GLOBAL_BUFS``).  The query layout changes no allocation."""
+def design(queries: Tensor, data: Tensor) -> int:
+    """The design that scans a call of these operands: ``TILED`` (the
+    register-tiled design) for f32 rows of ``TILED_MIN_D`` and wider, a
+    multiple of 4 with both bases 16-byte aligned (its copies are 16
+    bytes), in calls of ``TILED_MIN_B`` queries or more; else 0 (the
+    row-per-thread design).  Shapes and addresses only: it reads nothing
+    from the device."""
+    b, d = queries.shape
+    if data.dtype != torch.float32 or d < TILED_MIN_D or d % 4 \
+            or b < TILED_MIN_B:
+        return 0
+    return 0 if (queries.data_ptr() | data.data_ptr()) % 16 else TILED
+
+
+def meta_placement(k_pad: int, tiled: int = 0) -> int:
+    """``_placement``'s top-K buffers, for a call on meta tensors with no
+    library: with ``tiled`` (``TILED``) the tiled design's, in shared
+    memory while they take at most 128 KB (``tiled::TOPK_SMEM_BYTES``);
+    else the row-per-thread design's, in shared memory (0) while they
+    take at most 64 KB (``TOPK_SMEM_BYTES``); past either, in global
+    scratch (``GLOBAL_BUFS``).  The query layout changes no
+    allocation."""
+    if tiled:
+        small = QW * buffer_size(k_pad) * 8 <= 128 << 10
+        return TILED | (0 if small else GLOBAL_BUFS)
     return 0 if QT * buffer_size(k_pad) * 8 <= 64 << 10 else GLOBAL_BUFS
+
+
+def tile_width(placement: int) -> int:
+    """Queries a tile of the design that ``placement`` names."""
+    return QW if placement & TILED else QT
 
 
 def slot_order(sel: Tensor, nrows: Tensor, uc: int) -> Tensor:
@@ -133,11 +175,13 @@ def slot_order(sel: Tensor, nrows: Tensor, uc: int) -> Tensor:
 
 
 def group_queries_plain(qmask: Tensor, order: Optional[Tensor] = None,
-                        uc: Optional[int] = None) -> Dict[str, Tensor]:
-    """The grouping step of the indexed kernels in plain PyTorch.  For
-    each union slot u: ``qlist[u, :qcount[u]]`` the queries b with
+                        uc: Optional[int] = None, qt: int = QT
+                        ) -> Dict[str, Tensor]:
+    """The grouping step of the indexed kernels in plain PyTorch, in
+    tiles of ``qt`` queries (``QT``, or ``QW`` for the tiled design).
+    For each union slot u: ``qlist[u, :qcount[u]]`` the queries b with
     ``qmask[b, u]`` in increasing b (-1 after them), ``ntiles[u] =
-    ceil(qcount[u] / QT)``.  The tiles are listed slot by slot in
+    ceil(qcount[u] / qt)``.  The tiles are listed slot by slot in
     ``order`` (default: slot order), ``uc`` slots a chunk: ``work_u``
     names each tile's slot, ``tile_off[u]`` is where u's tiles start and
     ``chunk_off`` (chunks + 1,) where each chunk's start."""
@@ -150,7 +194,7 @@ def group_queries_plain(qmask: Tensor, order: Optional[Tensor] = None,
     first = torch.argsort((~qm).to(torch.uint8), dim=1, stable=True)
     ar = torch.arange(b, device=dev)
     qlist = torch.where(ar[None, :] < qcount[:, None], first, -1)
-    ntiles = ((qcount + QT - 1) // QT).to(torch.int32)
+    ntiles = ((qcount + qt - 1) // qt).to(torch.int32)
     nt = ntiles[order]
     start = torch.cumsum(nt, 0, dtype=torch.int32) - nt
     tile_off = torch.empty(u, dtype=torch.int32, device=dev)
@@ -163,19 +207,21 @@ def group_queries_plain(qmask: Tensor, order: Optional[Tensor] = None,
             "work_u": work_u}
 
 
-def _workspace(b: int, u: int, nchunks: int, dev) -> Tensor:
+def _workspace(b: int, u: int, nchunks: int, dev, qt: int = QT) -> Tensor:
     """The kernels' int32 workspace (``GroupedWs`` in
-    ``csrc/scan_grouped.cuh``): qlist (U, B), qcount, ntiles, tile_off,
-    chunk_off (chunks + 1), work_u (U * ceil(B / QT)) and one tile
-    counter per chunk."""
-    n = u * b + 3 * u + nchunks + 1 + u * -(-b // QT) + nchunks
+    ``csrc/scan_grouped.cuh``) for tiles of ``qt`` queries: qlist (U,
+    B), qcount, ntiles, tile_off, chunk_off (chunks + 1), work_u (U *
+    ceil(B / qt)) and one tile counter per chunk."""
+    n = u * b + 3 * u + nchunks + 1 + u * -(-b // qt) + nchunks
     return torch.empty(n, dtype=torch.int32, device=dev)
 
 
 def group_queries_cuda(qmask: Tensor, order: Optional[Tensor] = None,
-                       uc: Optional[int] = None) -> Dict[str, Tensor]:
-    """The grouping kernels alone on a CUDA ``qmask``, unpacked as
-    ``group_queries_plain`` returns it (qlist past qcount is -1)."""
+                       uc: Optional[int] = None, qt: int = QT
+                       ) -> Dict[str, Tensor]:
+    """The grouping kernels alone on a CUDA ``qmask``, in tiles of ``qt``
+    queries, unpacked as ``group_queries_plain`` returns it (qlist past
+    qcount is -1)."""
     if not qmask.is_cuda or qmask.dtype != torch.bool \
             or not qmask.is_contiguous():
         raise ValueError("qmask must be a contiguous bool CUDA tensor")
@@ -185,12 +231,12 @@ def group_queries_cuda(qmask: Tensor, order: Optional[Tensor] = None,
     if order is None:
         order = torch.arange(u, dtype=torch.int32, device=qmask.device)
     order = order.to(torch.int32).contiguous()
-    ws = _workspace(b, u, nch, qmask.device)
+    ws = _workspace(b, u, nch, qmask.device, qt)
     stream = torch.cuda.current_stream(qmask.device).cuda_stream
     build.check_launch(build.lib("scan_topk_indexed").group_queries(
-        qmask.data_ptr(), order.data_ptr(), ws.data_ptr(), b, u, uc,
+        qmask.data_ptr(), order.data_ptr(), ws.data_ptr(), b, u, uc, qt,
         stream), "group_queries")
-    sizes = [u * b, u, u, u, nch + 1, u * -(-b // QT)]
+    sizes = [u * b, u, u, u, nch + 1, u * -(-b // qt)]
     qlist, qcount, ntiles, tile_off, chunk_off, work_u = torch.split(
         ws[:sum(sizes)], sizes)
     ar = torch.arange(b, device=qmask.device)
@@ -201,46 +247,51 @@ def group_queries_cuda(qmask: Tensor, order: Optional[Tensor] = None,
 
 
 @functools.lru_cache(maxsize=None)
-def _placement(kind: str, d: int, k_pad: int, device: int) -> int:
-    """How a block of the ``kind`` kernel ("f32", "bf16" or "q8") lays
-    out its shared memory at width ``d`` and ``k_pad`` on CUDA device
-    ``device``: the top-K buffers in shared memory (0) or in global
-    scratch (``GLOBAL_BUFS``), and ``| QUERY_CHUNKS`` where the tile's
-    queries are staged a column chunk at a time (rows too wide to hold
-    them whole).  The kernels' ``grouped_placement`` decides, from the
-    card's limit."""
+def _placement(kind: str, d: int, k_pad: int, device: int,
+               tiled: int = 0) -> int:
+    """How the block of the ``kind`` kernel ("f32", "bf16" or "q8") lays
+    out its shared memory for rows of width ``d`` at ``k_pad`` on CUDA
+    device ``device``, in the design ``tiled`` names (``TILED`` for the
+    register-tiled one, f32 only; ``design`` chooses): the top-K buffers
+    in shared memory (0) or in global scratch (``GLOBAL_BUFS``), ``|
+    TILED`` in the tiled design, and, in the row-per-thread design, ``|
+    QUERY_CHUNKS`` where the tile's queries are staged a column chunk at
+    a time (rows too wide to hold them whole).  The library decides, from
+    the row type and width and the card's limit."""
     with torch.cuda.device(device):
         if kind == "q8":
             got = build.lib("scan_topk_indexed_q8").scan_indexed_q8_placement(
                 d, k_pad)
         else:
             got = build.lib("scan_topk_indexed").scan_indexed_placement(
-                d, k_pad, int(kind == "bf16"))
+                d, k_pad, int(kind == "bf16"), int(bool(tiled)))
     if got < 0:
         build.check_launch(-got, f"scan_topk_indexed ({kind}) placement")
     return got
 
 
 def _grouped_scratch(kind: str, d: int, b: int, u: int, uc: int,
-                     k_pad: int, dev
+                     k_pad: int, dev, tiled: int = 0
                      ) -> Tuple[Tensor, Optional[Tensor], int, int]:
     """(workspace, global top-K buffers or None, their number of
-    blocks, the query-chunks flag) for one launch of an indexed kernel."""
+    blocks, the placement flags) for one launch of an indexed kernel in
+    the design ``tiled`` names: the workspace and buffers follow the
+    design's tile width."""
     if dev.type == "meta":
-        where = meta_placement(k_pad)
+        where = meta_placement(k_pad, tiled)
     else:
         where = _placement(kind, d, k_pad, dev.index
                            if dev.index is not None
-                           else torch.cuda.current_device())
-    ws = _workspace(b, u, -(-u // uc), dev)
-    chunks = int(bool(where & QUERY_CHUNKS))
+                           else torch.cuda.current_device(), tiled)
+    qt = tile_width(where)
+    ws = _workspace(b, u, -(-u // uc), dev, qt)
     if not where & GLOBAL_BUFS:
-        return ws, None, 0, chunks
-    per_block = QT * buffer_size(k_pad) * 8
+        return ws, None, 0, where
+    per_block = qt * buffer_size(k_pad) * 8
     blocks = max(1, TOPK_SCRATCH_BYTES // per_block)
     gbuf = torch.empty(blocks * per_block // 4, dtype=torch.float32,
                        device=dev)
-    return ws, gbuf, blocks, chunks
+    return ws, gbuf, blocks, where
 
 
 def scan_topk_indexed_plain(queries: Tensor, data: Tensor, valid: Tensor,
@@ -313,10 +364,12 @@ def scan_topk_indexed_cuda(queries: Tensor, data: Tensor, valid: Tensor,
     part_d = torch.empty((b, uc, k_pad), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, uc, k_pad), dtype=torch.int32, device=dev)
     kind = "bf16" if data.dtype == torch.bfloat16 else "f32"
-    ws, gbuf, blocks, chunks = _grouped_scratch(kind, d, b, u, uc, k_pad,
-                                                dev)
+    ws, gbuf, blocks, where = _grouped_scratch(kind, d, b, u, uc, k_pad,
+                                               dev, design(queries, data))
     nrows = live_rows(valid)
     order = slot_order(sel, nrows, uc)
+    if where & TILED:
+        tracing.count("scan.tiled")
     if dev.type == "meta":
         build.META_WORK.add("scan_topk_indexed", *work(
             b, u, s, d, k_pad, data.element_size()), build.F32_FLOPS_PER_S)
@@ -328,10 +381,12 @@ def scan_topk_indexed_cuda(queries: Tensor, data: Tensor, valid: Tensor,
         order.data_ptr(), ws.data_ptr(),
         part_d.data_ptr(), part_i.data_ptr(),
         None if gbuf is None else gbuf.data_ptr(), run_d.data_ptr(),
-        run_i.data_ptr(), b, u, s, d, k_pad, uc, blocks, chunks,
+        run_i.data_ptr(), b, u, s, d, k_pad, uc, blocks, where,
         int(data.dtype == torch.bfloat16), int(metric == "l2"), stream)
     build.check_launch(err, "scan_topk_indexed")
     LAUNCHES.add()
+    if where & TILED:
+        LAUNCHES_TILED.add()
     return run_d, run_i
 
 
@@ -423,8 +478,8 @@ def scan_topk_indexed_q8_cuda(q_codes: Tensor, q_scales: Tensor,
     uc = max(1, min(u, SCRATCH_BYTES // (b * k_pad * 8)))
     part_d = torch.empty((b, uc, k_pad), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, uc, k_pad), dtype=torch.int32, device=dev)
-    ws, gbuf, blocks, chunks = _grouped_scratch("q8", d, b, u, uc, k_pad,
-                                                dev)
+    ws, gbuf, blocks, where = _grouped_scratch("q8", d, b, u, uc, k_pad,
+                                               dev)
     nrows = live_rows(valid)
     order = slot_order(sel, nrows, uc)
     if dev.type == "meta":
@@ -439,8 +494,8 @@ def scan_topk_indexed_q8_cuda(q_codes: Tensor, q_scales: Tensor,
         order.data_ptr(), ws.data_ptr(),
         part_d.data_ptr(), part_i.data_ptr(),
         None if gbuf is None else gbuf.data_ptr(), run_d.data_ptr(),
-        run_i.data_ptr(), b, u, s, d, k_pad, uc, blocks, chunks,
-        int(metric == "l2"), stream)
+        run_i.data_ptr(), b, u, s, d, k_pad, uc, blocks,
+        int(bool(where & QUERY_CHUNKS)), int(metric == "l2"), stream)
     build.check_launch(err, "scan_topk_indexed_q8")
     LAUNCHES_Q8.add()
     return run_d, run_i

@@ -602,11 +602,10 @@ def test_kmeans_on_the_card_is_reproducible(dev):
 # the grouped driver of the indexed scans
 # ---------------------------------------------------------------------------
 
-def _grouped_qmask(rng, b, u):
+def _grouped_qmask(rng, b, u, qt=sti.QT):
     """A mask with a slot no query probes, one every query probes, and
-    slots probed by QT - 1, QT, QT + 1, 2 QT - 1, 2 QT and 2 QT + 1
+    slots probed by qt - 1, qt, qt + 1, 2 qt - 1, 2 qt and 2 qt + 1
     queries (all of them where b is smaller)."""
-    qt = sti.QT
     qmask = rng.random((b, u)) < 0.2
     qmask[:, 0] = False
     qmask[:, 1] = True
@@ -617,20 +616,22 @@ def _grouped_qmask(rng, b, u):
     return qmask
 
 
+@pytest.mark.parametrize("qt", [sti.QT, sti.QW])
 @pytest.mark.parametrize("uc", [None, 4])
 @pytest.mark.parametrize("b,u", [(1, 9), (40, 9), (70, 12), (1500, 1100)])
-def test_group_queries_kernel_matches_plain(dev, b, u, uc):
+def test_group_queries_kernel_matches_plain(dev, b, u, uc, qt):
     """The grouping kernels against their plain version, exactly, with
     the slots in the kernels' order (longest partitions first within each
-    chunk of ``uc`` slots); B and U past one pass of either kernel."""
+    chunk of ``uc`` slots), in tiles of either design's width; B and U
+    past one pass of either kernel."""
     rng = np.random.default_rng(b * 100 + u)
-    qmask = torch.as_tensor(_grouped_qmask(rng, b, u), device=dev)
+    qmask = torch.as_tensor(_grouped_qmask(rng, b, u, qt), device=dev)
     sel = torch.as_tensor(rng.permutation(u).astype(np.int32), device=dev)
     nrows = torch.as_tensor(rng.integers(0, 50, size=u).astype(np.int32),
                             device=dev)
     order = sti.slot_order(sel, nrows, u if uc is None else uc)
-    got = sti.group_queries_cuda(qmask, order, uc)
-    want = sti.group_queries_plain(qmask, order, uc)
+    got = sti.group_queries_cuda(qmask, order, uc, qt)
+    want = sti.group_queries_plain(qmask, order, uc, qt)
     torch.cuda.synchronize()
     for name, t in want.items():
         assert torch.equal(got[name], t), name
@@ -725,32 +726,45 @@ def test_grouped_driver_wide_rows_match_plain(dev, kind, d, k_pad):
 
 
 def test_grouped_driver_width_limits_on_the_card(dev):
-    """How a block lays out its shared memory (0 top-K buffers in shared
-    memory, ``GLOBAL_BUFS`` in global, ``| QUERY_CHUNKS`` the queries by
-    column chunks) at the widths the docs name: today's layouts wherever
-    whole queries fit, query chunks only past that, and a layout at every
-    width (the old 2, "too wide", never comes back)."""
+    """How a block of the row-per-thread design lays out its shared
+    memory (0 top-K buffers in shared memory, ``GLOBAL_BUFS`` in global,
+    ``| QUERY_CHUNKS`` the queries by column chunks) at the widths the
+    docs name: today's layouts wherever whole queries fit, query chunks
+    only past that, and a layout at every width (the old 2, "too wide",
+    never comes back).  Given the tiled design (``TILED``, f32 rows
+    only), the library lays out its block at every width: ``TILED``,
+    with ``GLOBAL_BUFS`` past k_pad 128."""
     at = torch.cuda.current_device()
-    g, c = sti.GLOBAL_BUFS, sti.QUERY_CHUNKS
+    g, c, t = sti.GLOBAL_BUFS, sti.QUERY_CHUNKS, sti.TILED
+
+    def rows(kind, d, k_pad):           # the row-per-thread design's
+        return sti._placement(kind, d, k_pad, at)
     assert sti._placement("f32", 128, 128, at) == 0     # the main path
     assert sti._placement("q8", 128, 256, at) == 0      # the int8 path
-    assert sti._placement("f32", 868, 256, at) == 0
-    assert sti._placement("f32", 872, 256, at) == g
+    assert rows("f32", 868, 256) == 0
+    assert rows("f32", 872, 256) == g
     assert sti._placement("q8", 736, 256, at) == 0
     assert sti._placement("q8", 740, 256, at) == g
     assert sti._placement("f32", 128, 512, at) == g     # buffers > 64 KB
-    assert sti._placement("f32", 1892, sti.K_MAX, at) == g
+    assert rows("f32", 1892, sti.K_MAX) == g
     assert sti._placement("bf16", 1888, 16, at) == g
     assert sti._placement("q8", 4832, 16, at) == g
-    assert sti._placement("f32", 1896, 16, at) == c
+    assert rows("f32", 1896, 16) == c
     assert sti._placement("bf16", 1896, 16, at) == c
     assert sti._placement("q8", 4836, 16, at) == c
-    assert sti._placement("f32", 3072, sti.K_MAX, at) == g | c
+    assert rows("f32", 3072, sti.K_MAX) == g | c
+    assert sti._placement("f32", sti.TILED_MIN_D, 128, at, t) == t
+    assert sti._placement("f32", 3072, 128, at, t) == t  # the wide cell
+    assert sti._placement("f32", 3072, 256, at, t) == t | g
     for kind in ("f32", "bf16", "q8"):
         for k_pad in (16, 256, 1024, sti.K_MAX):
             got = {sti._placement(kind, d, k_pad, at)
                    for d in range(4, 16385, 4)}
             assert got <= {0, g, c, g | c}, (kind, k_pad, got)
+            if kind == "f32":
+                got = {sti._placement(kind, d, k_pad, at, t)
+                       for d in range(4, 16385, 4)}
+                assert got == {t if k_pad <= 128 else t | g}, (k_pad, got)
     # the widths that used to raise now run
     data = torch.zeros((2, 8, 1896), device=dev)
     valid = torch.ones((2, 8), dtype=torch.bool, device=dev)
@@ -762,6 +776,91 @@ def test_grouped_driver_width_limits_on_the_card(dev):
     assert torch.equal(dk, torch.zeros_like(dk))
     assert torch.equal(ik, torch.arange(16, dtype=torch.int32,
                                         device=dev).expand(3, 16))
+
+
+def _tiled_case(dev, d, dtype, seed):
+    """Operands of an indexed scan whose distances are exact in f32 in
+    any order: rows and queries of small integers, 40 distinct rows
+    repeated over 10 partitions of 300 slots (exact ties within and
+    across partitions), an empty partition, a short one and invalid rows
+    elsewhere, and 8 union slots probed by 0, 1, 63, 64, 65, every one
+    of 130 queries, 30% and 129 of them."""
+    rng = np.random.default_rng(seed)
+    p, s, b = 10, 300, 130
+    base = rng.integers(-3, 4, size=(40, d)).astype(np.float32)
+    data = torch.as_tensor(base[rng.integers(0, 40, (p, s))], device=dev)
+    valid = torch.as_tensor(rng.random((p, s)) < 0.9, device=dev)
+    sel = torch.as_tensor(rng.permutation(p)[:8].astype(np.int32),
+                          device=dev)
+    valid[sel[2].long()] = False                 # empty, 63 queries
+    valid[sel[4].long(), 200:] = False           # short, 65 queries
+    qmask = np.zeros((b, 8), bool)
+    for col, n in enumerate((0, 1, 63, 64, 65, b)):
+        qmask[rng.permutation(b)[:n], col] = True
+    qmask[:, 6] = rng.random(b) < 0.3
+    qmask[rng.permutation(b)[:129], 7] = True
+    q = torch.as_tensor(rng.integers(-3, 4, size=(b, d)),
+                        dtype=torch.float32, device=dev)
+    return (q.to(dtype), data.to(dtype), valid, sel,
+            torch.as_tensor(qmask, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k_pad", [128, 1024])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("width", ["min-4", "min", 3070, 3072])
+def test_tiled_scan_matches_plain(dev, width, metric, k_pad, dtype):
+    """The indexed scan of f32 and bf16 rows on either side of
+    ``TILED_MIN_D`` and at the wide cell's width (3,070: no 16-byte
+    copies), against the plain version bit for bit: integer rows (exact
+    in bf16 too) make every distance exact, so equal distances must keep
+    the smaller flat index.  ``design`` takes the register-tiled design
+    for the 130 queries' call on f32 rows of ``TILED_MIN_D`` and wider,
+    a multiple of 4 (top-K buffers in shared memory at k_pad 128, global
+    past it), the row-per-thread design for the rest, and for the first
+    ``TILED_MIN_B - 1`` queries alone."""
+    d = {"min-4": sti.TILED_MIN_D - 4, "min": sti.TILED_MIN_D}.get(width,
+                                                                   width)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, data, valid, sel, qmask = _tiled_case(dev, d, dtype, d + k_pad)
+    few = sti.TILED_MIN_B - 1
+    for args, tiled in (
+            ((q, data, valid, sel, qmask), dtype == torch.float32
+             and d >= sti.TILED_MIN_D and d % 4 == 0),
+            ((q[:few].contiguous(), data, valid, sel,
+              qmask[:few].contiguous()), False)):
+        before = sti.LAUNCHES_TILED.count
+        dk, ik = sti.scan_topk_indexed(*args, k_pad=k_pad, metric=metric)
+        assert sti.LAUNCHES_TILED.count - before == int(tiled)
+        dp, ip_ = sti.scan_topk_indexed_plain(*args, k_pad=k_pad,
+                                              metric=metric)
+        torch.cuda.synchronize()
+        assert torch.equal(dk, dp) and torch.equal(ik, ip_)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_tiled_placement_agrees_with_meta(dev, kind):
+    """The library's top-K buffers for the design ``design`` picks, and
+    ``meta_placement`` (its mirror for calls on meta tensors), agree at
+    the widths around the crossover and at the wide cell's, at k_pad in
+    shared and in global memory, in calls of 1,024 queries and of one."""
+    at = torch.cuda.current_device()
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    data = torch.zeros((1, 1, 4096), dtype=dtype, device=dev)
+    for d in (128, sti.TILED_MIN_D - 4, sti.TILED_MIN_D, 3070, 3072, 4096):
+        rows = data[..., :d].contiguous()
+        for b in (1, 1024):
+            tiled = sti.design(torch.zeros((b, d), dtype=dtype,
+                                           device=dev), rows)
+            assert tiled == (sti.TILED if kind == "f32"
+                             and b >= sti.TILED_MIN_B
+                             and d >= sti.TILED_MIN_D and d % 4 == 0
+                             else 0), (d, b)
+            for k_pad in (16, 128, 256, 1024):
+                got = sti._placement(kind, d, k_pad, at, tiled)
+                want = sti.meta_placement(k_pad, tiled)
+                assert got & (sti.TILED | sti.GLOBAL_BUFS) == want, (
+                    d, b, k_pad)
 
 
 def _wide_skewed(n, d, seed):
@@ -806,21 +905,31 @@ def wide_pair():
     return x, cpu, gpu, q
 
 
+@pytest.mark.parametrize("design", ["tiled", "rows"])
 @pytest.mark.parametrize("mode", [dict(nprobe=6, rounds=1), dict()],
                          ids=["nprobe", "aps"])
-def test_paged_search_batch_at_3072_matches_the_plain_path(dev, wide_pair,
-                                                           mode):
-    """``search_batch`` over 64-row pages at d = 3,072 (the scan stages
-    its queries in column chunks): the card's kernels answer as the plain
-    path on the CPU over the same pages and plans."""
+def test_paged_search_batch_at_3072_matches_the_plain_path(
+        dev, wide_pair, mode, design, monkeypatch):
+    """``search_batch`` over 64-row pages at d = 3,072, on the design
+    ``design`` picks for its 200 queries (the register-tiled scan) and on
+    the row-per-thread design it replaced (whose queries go in column
+    chunks): the card's kernels answer as the plain path on the CPU over
+    the same pages and plans."""
     x, cpu, gpu, q = wide_pair
     ex_c, ex_g = (_paged_executor(i, planner="vectorized")
                   for i in (cpu, gpu))
-    assert sti._placement("f32", 3072, 128, dev.index or 0) \
-        & sti.QUERY_CHUNKS
+    at = dev.index or 0
+    if design == "rows":
+        monkeypatch.setattr(sti, "design", lambda *a: 0)
+        assert sti._placement("f32", 3072, 128, at) & sti.QUERY_CHUNKS
+    else:
+        assert len(q) >= sti.TILED_MIN_B
     before = sti.LAUNCHES.count
+    tiled = sti.LAUNCHES_TILED.count
     rg, rc = ex_g.search(q, 100, **mode), ex_c.search(q, 100, **mode)
     assert sti.LAUNCHES.count - before == rg.rounds
+    assert sti.LAUNCHES_TILED.count - tiled == (
+        rg.rounds if design == "tiled" else 0)
     assert not ex_g._snap.dense and ex_g._snap.num_pages > 20
     assert rg.rounds == rc.rounds and rg.comparisons == rc.comparisons
     _near(rg.dists, rc.dists, q, x, rc.ids)
@@ -1712,10 +1821,15 @@ def test_meta_kmeans_assign_allocates_as_the_card(dev):
     assert got == want
 
 
-@pytest.mark.parametrize("q8", [False, True])
-def test_meta_indexed_scans_allocate_as_the_card(dev, q8):
+@pytest.mark.parametrize("q8,d,k_pad", [(False, 128, 128),
+                                         (True, 128, 128),
+                                         (False, 3072, 128),
+                                         (False, 3072, 1024)])
+def test_meta_indexed_scans_allocate_as_the_card(dev, q8, d, k_pad):
+    """Both designs (the tiled one at d = 3,072, its buffers in shared
+    and in global memory) allocate on meta tensors as on the card."""
     g = torch.Generator().manual_seed(2)
-    p, s, d, b, u = 32, 256, 128, 48, 12
+    p, s, b, u = 32, 256, 48, 12
     valid = torch.ones(p, s, dtype=torch.bool)
     sel = torch.randperm(p, generator=g)[:u].to(torch.int32)
     qmask = torch.rand(b, u, generator=g) < 0.5
@@ -1723,7 +1837,7 @@ def test_meta_indexed_scans_allocate_as_the_card(dev, q8):
         data, q = torch.randn(p, s, d, generator=g), torch.randn(
             b, d, generator=g)
         got, want = _meta_and_card_bytes(
-            dev, lambda *a: sti.scan_topk_indexed(*a, k_pad=128),
+            dev, lambda *a: sti.scan_topk_indexed(*a, k_pad=k_pad),
             (q, data, valid, sel, qmask))
     else:
         codes = torch.randint(-127, 128, (p, s, d), generator=g,
